@@ -1,0 +1,70 @@
+"""Build the port's objects from numpy arrays (e.g. the JAX package's state).
+
+Each stage can then be held against the reference in isolation: a JAX
+``HSSMatrix`` goes into the port's ``factorize``, a JAX factorization into
+the port's ADMM, a JAX-trained model into the port's scoring.  The one
+format difference is the root LU pivots: ``jax.scipy.linalg.lu_factor``
+returns 0-based pivots, ``torch.linalg.lu_factor`` 1-based (LAPACK) ones.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import EngineModel
+from repro_torch.core.factorization import HSSFactorization
+from repro_torch.core.hss import HSSMatrix
+from repro_torch.core.kernelfn import KernelSpec
+
+
+def _t(a: np.ndarray, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a), device=device)
+
+
+def hss_from_numpy(*, x: np.ndarray, d_leaf: np.ndarray, u_leaf: np.ndarray,
+                   skel_leaf: np.ndarray, transfers: Sequence[np.ndarray],
+                   skels: Sequence[np.ndarray], b_mats: Sequence[np.ndarray],
+                   levels: int, leaf_size: int, device="cuda") -> HSSMatrix:
+    """A fixed-rank ``HSSMatrix`` from its arrays."""
+    return HSSMatrix(
+        x=_t(x, device), d_leaf=_t(d_leaf, device), u_leaf=_t(u_leaf, device),
+        skel_leaf=_t(skel_leaf, device),
+        transfers=tuple(_t(a, device) for a in transfers),
+        skels=tuple(_t(a, device) for a in skels),
+        b_mats=tuple(_t(a, device) for a in b_mats),
+        levels=int(levels), leaf_size=int(leaf_size))
+
+
+def factorization_from_numpy(*, e_leaf: np.ndarray, g_leaf: np.ndarray,
+                             e_lvls: Sequence[np.ndarray],
+                             g_lvls: Sequence[np.ndarray], root_lu: np.ndarray,
+                             root_piv: np.ndarray, levels: int, leaf_size: int,
+                             beta: float, device="cuda") -> HSSFactorization:
+    """An ``HSSFactorization`` from its arrays; ``root_piv`` is 0-based as
+    ``jax.scipy.linalg.lu_factor`` returns it (a levels = 0 factorization
+    holds a Cholesky factor there and its pivots are unused)."""
+    return HSSFactorization(
+        e_leaf=_t(e_leaf, device), g_leaf=_t(g_leaf, device),
+        e_lvls=tuple(_t(a, device) for a in e_lvls),
+        g_lvls=tuple(_t(a, device) for a in g_lvls),
+        root_lu=_t(root_lu, device),
+        root_piv=_t(np.asarray(root_piv, np.int32) + 1, device),
+        levels=int(levels), leaf_size=int(leaf_size), beta=float(beta))
+
+
+def engine_model_from_numpy(*, x_perm: np.ndarray, z_y: np.ndarray,
+                            biases: np.ndarray, classes: np.ndarray, h: float,
+                            beta: float | None = None, c_value: float = 1.0,
+                            device="cuda") -> EngineModel:
+    """A binary gaussian ``EngineModel``; ``z_y`` is (d, 1) or (d,)."""
+    classes = np.asarray(classes)
+    if classes.shape[0] != 2:
+        raise NotImplementedError("multiclass models are ROADMAP queue 1 item 7")
+    z_y = np.asarray(z_y, np.float32).reshape(np.asarray(x_perm).shape[0], -1)
+    return EngineModel(
+        x_perm=_t(np.asarray(x_perm, np.float32), device), z_y=_t(z_y, device),
+        biases=_t(np.asarray(biases, np.float32).reshape(-1), device),
+        classes=classes, spec=KernelSpec(h=float(h)), c_value=float(c_value),
+        beta=None if beta is None else float(beta))

@@ -1,0 +1,123 @@
+"""Hierarchically Semi-Separable matrix container + telescoping apply.
+
+Counterpart of ``repro.core.hss``.  Skeleton (interpolative) form, symmetric
+kernel case (paper §3.1):
+
+  - leaf diagonal blocks D_i = K(X_i, X_i)                       (dense, exact)
+  - leaf bases U_i (m, r0): interpolation onto r0 skeleton points per leaf,
+    U_i[skel rows] = I
+  - per internal level k: transfer matrices P (2 r_{k-1}, r_k) stacking the
+    children transfers, and skeleton indices (global point ids)
+  - sibling couplings B at level k: B_p = K(X[skel_c1], X[skel_c2]).
+
+Level indexing: k = 0 are the leaves, k = K = levels is the root; level k
+has n_k = 2**(K-k) nodes.  Arrays are stacked over nodes per level, so every
+operation is a batch of small dense products.  Fixed rank only.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class HSSMatrix:
+    """Symmetric HSS approximation of a kernel matrix over permuted points."""
+
+    x: torch.Tensor           # (N, f)  permuted data points
+    d_leaf: torch.Tensor      # (n_leaf, m, m)
+    u_leaf: torch.Tensor      # (n_leaf, m, r0)
+    skel_leaf: torch.Tensor   # (n_leaf, r0) int32 — global permuted-space indices
+    transfers: tuple[torch.Tensor, ...]   # per k = 1..K-1: (n_k, 2 r_{k-1}, r_k)
+    skels: tuple[torch.Tensor, ...]       # per k = 1..K-1: (n_k, r_k) int32
+    b_mats: tuple[torch.Tensor, ...]      # per k = 1..K: (n_k, r_{k-1}, r_{k-1})
+    levels: int
+    leaf_size: int
+
+    @property
+    def n(self) -> int:
+        return self.d_leaf.shape[0] * self.leaf_size
+
+    @property
+    def n_leaves(self) -> int:
+        return self.d_leaf.shape[0]
+
+    @property
+    def ranks(self) -> list[int]:
+        """Per-level stored ranks, k = 0..K-1."""
+        return [self.u_leaf.shape[-1]] + [t.shape[-1] for t in self.transfers]
+
+    def stored_rank_sum(self) -> int:
+        """Σ_levels n_k · r_k: the paper's O(N r) storage in skeleton slots."""
+        return sum(r * (self.n_leaves >> k) for k, r in enumerate(self.ranks))
+
+    def rank_masks(self) -> None:
+        """Skeleton-liveness masks exist only for adaptive-rank builds (queue 6)."""
+        return None
+
+    def matvec(self, v: torch.Tensor) -> torch.Tensor:
+        """K̃ @ v in O(N r) — single-RHS view of ``matmat``."""
+        return self.matmat(v[:, None])[:, 0]
+
+    def matmat(self, v: torch.Tensor) -> torch.Tensor:
+        """K̃ @ V for V (N, c) — one telescoping sweep over the RHS block."""
+        K = self.levels
+        n_leaf, m = self.n_leaves, self.leaf_size
+        c = v.shape[1]
+        vl = v.reshape(n_leaf, m, c)
+        diag = self.d_leaf @ vl
+        if K == 0:
+            return diag.reshape(-1, c)
+
+        # Upward: project into skeleton coordinates at every level.
+        vt = [self.u_leaf.transpose(1, 2) @ vl]              # (n_leaf, r0, c)
+        for k in range(1, K):
+            t = self.transfers[k - 1]                         # (n_k, 2 r_{k-1}, r_k)
+            prev = vt[-1].reshape(t.shape[0], t.shape[1], c)  # pair children
+            vt.append(t.transpose(1, 2) @ prev)
+
+        # Downward: accumulate incoming far field per node, top level first.
+        w = None
+        for k in range(K, 0, -1):
+            b = self.b_mats[k - 1]                            # (n_k, r, r)
+            pair = vt[k - 1].reshape(b.shape[0], 2, b.shape[1], c)
+            coup = torch.stack([b @ pair[:, 1], b.transpose(1, 2) @ pair[:, 0]],
+                               dim=1)                         # (n_k, 2, r, c)
+            if w is not None:
+                down = self.transfers[k - 1] @ w
+                coup = coup + down.reshape(coup.shape)
+            w = coup.reshape(-1, coup.shape[-2], c)           # (n_{k-1}, r, c)
+
+        out = diag + self.u_leaf @ w
+        return out.reshape(-1, c)
+
+    def todense(self) -> torch.Tensor:
+        """Dense reconstruction (tests and small problems only)."""
+        K = self.levels
+        n_leaf, m = self.n_leaves, self.leaf_size
+        out = torch.zeros((self.n, self.n), dtype=self.d_leaf.dtype,
+                          device=self.d_leaf.device)
+        for i in range(n_leaf):
+            out[i * m:(i + 1) * m, i * m:(i + 1) * m] = self.d_leaf[i]
+        ubig = [self.u_leaf[i] for i in range(n_leaf)]
+        for k in range(1, K + 1):
+            b = self.b_mats[k - 1]
+            width = m * 2 ** (k - 1)
+            for p in range(b.shape[0]):
+                blk = ubig[2 * p] @ b[p] @ ubig[2 * p + 1].T
+                r0, c0 = 2 * p * width, (2 * p + 1) * width
+                out[r0:r0 + width, c0:c0 + width] = blk
+                out[c0:c0 + width, r0:r0 + width] = blk.T
+            if k < K:
+                t = self.transfers[k - 1]
+                rc = t.shape[1] // 2
+                ubig = [torch.cat([ubig[2 * p] @ t[p, :rc], ubig[2 * p + 1] @ t[p, rc:]])
+                        for p in range(b.shape[0])]
+        return out
+
+    def memory_bytes(self) -> int:
+        """Storage of the representation (the paper's 'Memory [MB]' column)."""
+        arrays = (self.d_leaf, self.u_leaf, self.skel_leaf,
+                  *self.transfers, *self.skels, *self.b_mats)
+        return sum(a.numel() * a.element_size() for a in arrays)

@@ -1,0 +1,14 @@
+"""Hand-written CUDA kernels for Hopper, one subpackage per Pallas kernel.
+
+Each subpackage keeps the triple of ``repro.kernels``:
+  ref.py    — the plain PyTorch version of the function (any device);
+  kernel.py — the ctypes launcher of the CUDA kernel in ``csrc/`` (CUDA
+              tensors only; checks its inputs, counts its launches);
+  ops.py    — the public wrapper: CPU tensors run ref.py, CUDA tensors
+              launch the kernel or raise.  There is no fallback.
+
+Kernels:
+  gaussian     — batched Gaussian kernel block (K1)
+  compress     — fused assemble + pivoted-QR row ID of one tree level (K2)
+  admm_update  — fused ADMM z-projection + multiplier update (K3)
+"""

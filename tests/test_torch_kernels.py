@@ -1,0 +1,186 @@
+"""The port's kernel modules against the JAX package, on the CPU.
+
+Here every wrapper runs its plain PyTorch version (the tensors lie on the
+CPU); the CUDA kernels themselves are held against those plain versions on
+the card by ``chip_smoke.py``.  The JAX side runs its Pallas kernels in
+interpret mode, as its own tests do, and its XLA twins.  Both sides work in
+f32 with the same numpy inputs; matmuls run at "highest" precision.
+"""
+import ast
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import idqr as jidqr
+from repro.core.kernelfn import gaussian_block_xla
+from repro.kernels.admm_update import ops as jaops
+from repro.kernels.compress import ops as jcops
+from repro.kernels.gaussian import ops as jgops
+from repro_torch.kernels import _build
+from repro_torch.kernels.admm_update import kernel as akern, ops as aops
+from repro_torch.kernels.compress import kernel as ckern, ops as cops
+from repro_torch.kernels.gaussian import kernel as gkern, ops as gops
+
+torch.set_float32_matmul_precision("highest")
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+ODD_SHAPES = [(1, 3, 2), (255, 129, 5), (300, 7, 11)]
+
+
+def _pair(ma, mb, f, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(ma, f)).astype(dtype),
+            rng.normal(size=(mb, f)).astype(dtype))
+
+
+# ---------------------------------------------------------------- K1 ---- #
+@pytest.mark.parametrize("ma,mb,f", ODD_SHAPES)
+@pytest.mark.parametrize("h", [0.7, 3.0])
+def test_gaussian_matches_xla_and_pallas_odd_shapes(ma, mb, f, h):
+    """Same tolerance as the JAX package's own Pallas-vs-XLA parity test:
+    f32 sums of 2-11 terms in another order, K in [0, 1]."""
+    a, b = _pair(ma, mb, f, 1000 * ma + mb)
+    out = gops.gaussian_block(torch.as_tensor(a), torch.as_tensor(b), h).numpy()
+    xla = np.asarray(gaussian_block_xla(jnp.asarray(a), jnp.asarray(b), h))
+    pallas = np.asarray(jgops.gaussian_block(jnp.asarray(a), jnp.asarray(b), h,
+                                             interpret=True))
+    assert out.shape == (ma, mb) and out.dtype == np.float32
+    np.testing.assert_allclose(out, xla, rtol=2e-5, atol=2e-6)
+    np.testing.assert_allclose(out, pallas, rtol=2e-5, atol=2e-6)
+
+
+def test_gaussian_batched_equals_per_block():
+    """The batched (B, ·, f) call is one block per batch entry."""
+    rng = np.random.default_rng(5)
+    xa = torch.as_tensor(rng.normal(size=(3, 17, 4)).astype(np.float32))
+    xb = torch.as_tensor(rng.normal(size=(3, 9, 4)).astype(np.float32))
+    out = gops.gaussian_block(xa, xb, 1.2)
+    for i in range(3):
+        torch.testing.assert_close(out[i], gops.gaussian_block(xa[i], xb[i], 1.2),
+                                   rtol=0, atol=0)
+
+
+def test_gaussian_bf16_stores_bf16_from_f32_math():
+    """bf16 in, bf16 out; distances in f32, so the only error is the final
+    bf16 rounding of K in [0, 1] (half an ulp at 1 is 2^-9)."""
+    a, b = _pair(64, 40, 8, 0)
+    a16 = torch.as_tensor(a).to(torch.bfloat16)
+    b16 = torch.as_tensor(b).to(torch.bfloat16)
+    out = gops.gaussian_block(a16, b16, 1.0)
+    assert out.dtype == torch.bfloat16
+    ref = np.asarray(gaussian_block_xla(jnp.asarray(a16.float().numpy()),
+                                        jnp.asarray(b16.float().numpy()), 1.0))
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0, atol=2 ** -8)
+
+
+# ---------------------------------------------------------------- K2 ---- #
+@pytest.mark.parametrize("b,m,s,f,k", [
+    (3, 50, 37, 5, 12),     # odd everything
+    (1, 7, 3, 2, 3),        # tiny, k > s
+    (4, 129, 65, 11, 16),   # crosses the TPU's 128-lane boundary
+])
+def test_assemble_id_matches_pallas_and_idqr(b, m, s, f, k):
+    """Plain version + finish_interp against the fused Pallas kernel
+    (interpret) and against idqr.row_interp_decomp of the XLA block: pivots
+    exactly equal (greedy CPQR is deterministic on non-degenerate blocks),
+    interpolation matrices to 1e-5 of their largest entry (f32 reorderings
+    through k Gram-Schmidt steps and one triangular solve)."""
+    rng = np.random.default_rng(b * m + s + k)
+    xc = rng.normal(size=(b, m, f)).astype(np.float32)
+    xp = rng.normal(size=(b, s, f)).astype(np.float32)
+    h = 1.3
+    piv, pmat, ranks = cops.batched_assemble_id(
+        torch.as_tensor(xc), torch.as_tensor(xp), k, h=h, rtol=1e-5)
+    piv, pmat = piv.numpy(), pmat.numpy()
+    assert piv.shape == (b, k) and pmat.shape == (b, m, k)
+    assert ranks.tolist() == [k] * b
+    jpiv, jp, _ = jcops.batched_assemble_id(
+        jnp.asarray(xc), jnp.asarray(xp), k, kernel_name="gaussian", h=h,
+        rtol=1e-5, adaptive=False, interpret=True)
+    np.testing.assert_array_equal(piv, np.asarray(jpiv))
+    scale = max(1.0, float(np.abs(np.asarray(jp)).max()))
+    np.testing.assert_allclose(pmat, np.asarray(jp), rtol=0, atol=1e-5 * scale)
+    for i in range(b):
+        blk = gaussian_block_xla(jnp.asarray(xc[i]), jnp.asarray(xp[i]), h)
+        rpiv, rp = jidqr.row_interp_decomp(blk, k)
+        np.testing.assert_array_equal(piv[i], np.asarray(rpiv))
+        np.testing.assert_allclose(pmat[i], np.asarray(rp), rtol=0, atol=1e-5 * scale)
+
+
+def test_assemble_id_cmask_matches_pallas():
+    """Dead candidates (cmask = 0) are zero rows of the sampled block: never
+    pivots while live ones remain, same pivots as the Pallas kernel."""
+    rng = np.random.default_rng(11)
+    b, m, s, f, k = 2, 30, 20, 4, 6
+    xc = rng.normal(size=(b, m, f)).astype(np.float32)
+    xp = rng.normal(size=(b, s, f)).astype(np.float32)
+    cmask = np.repeat((np.arange(m) < 20).astype(np.float32)[None], b, axis=0)
+    piv, pmat, _ = cops.batched_assemble_id(
+        torch.as_tensor(xc), torch.as_tensor(xp), k, h=1.0, rtol=1e-5,
+        cmask=torch.as_tensor(cmask))
+    jpiv, jp, _ = jcops.batched_assemble_id(
+        jnp.asarray(xc), jnp.asarray(xp), k, kernel_name="gaussian", h=1.0,
+        rtol=1e-5, adaptive=False, cmask=jnp.asarray(cmask), interpret=True)
+    assert int(piv.max()) < 20
+    np.testing.assert_array_equal(piv.numpy(), np.asarray(jpiv))
+    np.testing.assert_allclose(pmat.numpy(), np.asarray(jp), rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------- K3 ---- #
+@pytest.mark.parametrize("n", [128, 1000, 4097])
+@pytest.mark.parametrize("beta", [1.0, 100.0, 1e4])
+def test_zmu_update_matches_pallas(n, beta):
+    """The plain version divides by beta, the Pallas kernel multiplies by
+    1/beta: z to 1e-6 (it is O(1)), μ⁺ relative to its size."""
+    rng = np.random.default_rng(n)
+    x = rng.normal(size=n).astype(np.float32)
+    mu = (beta * rng.normal(size=n)).astype(np.float32)
+    c = (np.abs(rng.normal(size=n)) + 0.1).astype(np.float32)
+    z, mu_new = aops.fused_zmu_update(*(torch.as_tensor(a) for a in (x, mu, c)), beta)
+    jz, jmu = jaops.fused_zmu_update(*(jnp.asarray(a) for a in (x, mu, c)), beta,
+                                     interpret=True)
+    np.testing.assert_allclose(z.numpy(), np.asarray(jz), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(mu_new.numpy(), np.asarray(jmu), rtol=1e-5,
+                               atol=1e-6 * beta)
+
+
+# ----------------------------------------------- launch and build rules ---- #
+@pytest.mark.parametrize("launch", [
+    lambda t: gkern.gaussian_block_cuda(t[None], t[None], 1.0),
+    lambda t: ckern.fused_assemble_id_cuda(t[None], t[None], torch.ones(1, 4), 2, 1.0),
+    lambda t: akern.fused_zmu_update_cuda(t[:, 0].contiguous(), t[:, 0].contiguous(),
+                                          t[:, 0].contiguous(), 1.0),
+], ids=["gaussian_block", "fused_assemble_id", "zmu_update"])
+def test_kernel_launchers_refuse_cpu_tensors(launch):
+    """A launcher takes CUDA tensors only: on anything else it raises before
+    building or launching, and its launch count does not move."""
+    before = dict(_build.launch_counts)
+    with pytest.raises(ValueError):
+        launch(torch.zeros(4, 3))
+    assert _build.launch_counts == before
+
+
+def test_every_kernel_source_exists_and_builds_into_ignored_dir():
+    for name in _build.KERNELS:
+        assert (_build.CSRC / f"{name}.cu").is_file(), name
+    rel = _build.BUILD_DIR.relative_to(REPO)
+    ignored = (REPO / ".gitignore").read_text().split()
+    assert f"{rel.parts[0]}/" in ignored
+
+
+def test_port_imports_neither_jax_nor_repro():
+    """src/repro_torch stands alone: no module imports jax or repro."""
+    offenders = []
+    for path in sorted((REPO / "src" / "repro_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            offenders += [f"{path.name}: {n}" for n in names
+                          if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not offenders, offenders
