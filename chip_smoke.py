@@ -110,11 +110,13 @@ def k1_cost(b, ma, mb, f):
 
 def k2_cost(b, m, s, f, k):
     """Bytes: points and mask in, pivots and R out.  Flops per node: the
-    assembly, k steps of deflation + norms (6sm), re-orthogonalisation
-    against the i earlier directions (4si) and R = QᵀAᵀ (2ksm)."""
+    assembly, then per step the qᵀ·column dots, the deflation and the new
+    column norms (6sm), re-orthogonalisation against the i earlier
+    directions (4si) and the normalisations (4s + m).  R = QᵀAᵀ needs no
+    pass of its own: R[i, :] is the row of qᵀ·column dots of step i."""
     bytes_moved = 4.0 * b * (m * f + s * f + m + k + k * m)
     per_node = s * m * (2 * f + 5) + sum(6 * s * m + 4 * s * i + 4 * s + m
-                                         for i in range(k)) + 2 * k * s * m
+                                         for i in range(k))
     return bytes_moved, float(b) * per_node
 
 
@@ -139,6 +141,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.core import admm as admm_mod
+    from repro_torch.core.admm import ADMMParams
     from repro_torch.core import compression, tree as tree_mod
     from repro_torch.core.compression import CompressionParams
     from repro_torch.core.engine import HSSSVMEngine
@@ -211,6 +214,18 @@ def main() -> int:
                 xl[1::2, :RANK].contiguous(), 50),
         k1_case("scoring block", x[:N_TEST], x, 8),
     ]
+    # A batch above grid.z's 65535 (10^7 points make 131072 leaves at leaf
+    # 128): the launcher splits it into chunks.  A check only, outside the
+    # cell, at 64 rows a block to keep it small.
+    xbig = torch.randn((2 ** 17, 64, N_FEATURES), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(1))
+    err_big = (gops.gaussian_block(xbig, xbig, H)
+               - gref.gaussian_block_ref(xbig, xbig, H)).abs().max().item()
+    print(f"[kernels] K1 gaussian_block batch {xbig.shape[0]} (above 65535) "
+          f"{tuple(xbig.shape)}: max_abs_err {err_big:.3e} (tol {K1_ATOL:g})")
+    check(err_big <= K1_ATOL, f"K1 at batch {xbig.shape[0]} disagrees: {err_big}")
+    del xbig
+    torch.cuda.empty_cache()
 
     params = CompressionParams(rank=RANK, n_near=N_NEAR, n_far=N_FAR)
     t0 = time.perf_counter()
@@ -289,7 +304,7 @@ def main() -> int:
     small = {}
     for where in ("cuda", "cpu"):
         eng = HSSSVMEngine(spec=KernelSpec(h=H), comp=params, leaf_size=128,
-                           max_it=MAX_IT, device=where)
+                           admm=ADMMParams(max_it=MAX_IT), device=where)
         eng.prepare(xs, ys_)
         mdl, (zs, _) = eng.train(C)
         small[where] = (mdl.biases.cpu(), mdl.decision_function(xst).cpu(), zs.cpu())
@@ -306,7 +321,7 @@ def main() -> int:
     xtr, ytr, xte, yte = synthetic.train_test(
         "blobs", N_TRAIN, N_TEST, seed=0, n_features=N_FEATURES, sep=SEP)
     engine = HSSSVMEngine(spec=KernelSpec(h=H), comp=params, leaf_size=LEAF,
-                          max_it=MAX_IT, device="cuda")
+                          admm=ADMMParams(max_it=MAX_IT), device="cuda")
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     t0 = time.perf_counter()

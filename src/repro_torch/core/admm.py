@@ -1,21 +1,24 @@
-"""Closed-form ADMM for box-constrained kernel QPs (paper Algorithm 2).
+"""Closed-form ADMM for the binary SVM dual (paper Algorithm 2).
 
-Counterpart of ``repro.core.admm`` (fixed β).  Solves k problems
+Counterpart of ``repro.core.admm`` (fixed β, the SVM instance).  Solves k
+problems
 
-  min_x ½ xᵀ S K S x + pᵀx + γ‖x‖₁   s.t. aᵀx = b,  x ∈ [lo, hi]^d
+  min_x ½ xᵀ S K S x + pᵀx   s.t. aᵀx = 0,  x ∈ [lo, hi]^d
 
-that share ONE factorization of K̃ + βI, split as x − z = 0.  Per iteration:
+(the SVM: S = Y, p = −e, a = y, box [0, C]) that share ONE factorization of
+K̃ + βI, split as x − z = 0.  Per iteration:
 
-  x-step: x⁺ = S K_β⁻¹ S q − λ · S K_β⁻¹ (S a),  q = −p + μ + β z,
-          λ = (vᵀ(S q) − b) / ((Sa)ᵀ v),  v = K_β⁻¹ (S a)  (one solve per call)
-  z-step: z⁺ = Π_[lo,hi](soft(x⁺ − μ/β, γ/β))
+  x-step: x⁺ = S K_β⁻¹ S q − λ · S v,  q = −p + μ + β z,
+          λ = vᵀ(S q) / ((S a)ᵀ v),  v = K_β⁻¹ (S a)  (one solve per call)
+  z-step: z⁺ = Π_[lo,hi](x⁺ − μ/β)
   μ-step: μ⁺ = μ − β (x⁺ − z⁺)
 
 The JAX ``lax.scan`` is a Python loop here; the residual traces stay on the
 device and are stacked once at the end.  ``tol`` freezes a problem once its
 relative residuals pass (Boyd §3.3.1) and ``ADMMTrace.iters_run`` counts its
 live iterations.  ``use_fused_update`` runs the z/μ step through kernel K3
-(γ = 0, lo = 0 tasks only: the SVM instance).
+(lo = 0 only).  The ℓ1 prox, non-zero right-hand sides and per-problem
+equality vectors of the reference's other tasks are ROADMAP queue 1 item 7.
 """
 from __future__ import annotations
 
@@ -34,17 +37,15 @@ class BoxQPTask:
     """One batch of k box-QP problems sharing a single K_β factorization.
 
     All per-coordinate fields are (d, k) column blocks.  ``eq_sa`` is the
-    equality vector pre-multiplied by the sign diagonal, (d,) when shared,
-    (d, k) per problem, None for no constraint.
+    shared equality vector pre-multiplied by the sign diagonal, (d,); the
+    constraint is eq_saᵀ(S x) = 0.
     """
 
     sign: torch.Tensor            # (d, k) diagonal of S per problem (±1)
     lin: torch.Tensor             # (d, k) linear term p
     lo: torch.Tensor              # (d, k) box lower bounds
     hi: torch.Tensor              # (d, k) box upper bounds
-    eq_sa: torch.Tensor | None = None
-    eq_b: torch.Tensor | None = None   # (k,) right-hand sides (None -> 0)
-    l1: torch.Tensor | None = None     # (k,) ℓ1 weights γ (None -> no prox)
+    eq_sa: torch.Tensor           # (d,) shared S·a
 
 
 class ADMMState(NamedTuple):
@@ -57,7 +58,6 @@ class ADMMTrace(NamedTuple):
     primal_res: torch.Tensor   # (max_it, k)  ||x - z|| per iteration
     dual_res: torch.Tensor     # (max_it, k)  beta * ||z - z_prev|| per iteration
     iters_run: torch.Tensor    # (k,) int32   iterations before the tol freeze
-    done: torch.Tensor | None = None   # (k,) bool final freeze mask (tol runs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,13 +110,12 @@ def admm_boxqp(
     z0: torch.Tensor | None = None,
     mu0: torch.Tensor | None = None,
     use_fused_update: bool = False,
-    done0: torch.Tensor | None = None,
 ) -> tuple[ADMMState, ADMMTrace]:
     """Run k box-QP ADMM problems that share one (K̃ + βI) factorization.
 
     ``solver_mat`` applies (K̃ + βI)⁻¹ to a (d, k) block (one O(d r) sweep
     per iteration).  State is (d, k), traces (max_it, k).  ``z0``/``mu0``
-    warm-start, ``done0`` seeds the freeze mask.
+    warm-start.
     """
     d, k = task.sign.shape
     dtype, dev = task.sign.dtype, task.sign.device
@@ -125,28 +124,11 @@ def admm_boxqp(
     lo_mat = task.lo.expand(d, k)
     hi_mat = task.hi.expand(d, k)
 
-    has_eq = task.eq_sa is not None
-    if has_eq:
-        if task.eq_sa.dim() == 1:      # shared vector: ONE single-RHS solve
-            v = solver_mat(task.eq_sa[:, None])[:, 0]
-            w1 = task.eq_sa @ v
-            sv = s_cols * v[:, None]
-
-            def eq_dot(sq):
-                return v @ sq
-        else:                          # per-problem vectors: one k-RHS solve
-            v = solver_mat(task.eq_sa)
-            w1 = (task.eq_sa * v).sum(0)
-            sv = s_cols * v
-
-            def eq_dot(sq):
-                return (v * sq).sum(0)
-        eq_b = torch.zeros((k,), dtype=dtype, device=dev) if task.eq_b is None \
-            else task.eq_b
+    v = solver_mat(task.eq_sa[:, None])[:, 0]    # ONE single-RHS solve
+    w1 = task.eq_sa @ v
+    sv = s_cols * v[:, None]
 
     if use_fused_update:
-        if task.l1 is not None:
-            raise ValueError("fused z/mu update supports only gamma=0 tasks")
         if bool((task.lo != 0).any()):
             raise ValueError("fused z/mu update supports only lo=0 tasks")
         c_flat = hi_mat.reshape(-1).contiguous()
@@ -156,37 +138,22 @@ def admm_boxqp(
                 x.reshape(-1), mu.reshape(-1), c_flat, beta)
             return z_f.reshape(x.shape), mu_f.reshape(x.shape)
     else:
-        if task.l1 is None:
-            def prox(t):
-                return torch.minimum(torch.maximum(t, lo_mat), hi_mat)
-        else:
-            thr = (task.l1.expand(k) / beta)[None, :]
-
-            def prox(t):               # prox of (γ‖·‖₁ + box)/β: shrink, clip
-                t = torch.sign(t) * torch.clamp(t.abs() - thr, min=0.0)
-                return torch.minimum(torch.maximum(t, lo_mat), hi_mat)
-
         def zmu_update(x, mu):
-            z_new = prox(x - mu / beta)
+            z_new = torch.minimum(torch.maximum(x - mu / beta, lo_mat), hi_mat)
             return z_new, mu - beta * (x - z_new)
 
     x = torch.zeros((d, k), dtype=dtype, device=dev)
     z = torch.zeros((d, k), dtype=dtype, device=dev) if z0 is None else z0
     mu = torch.zeros((d, k), dtype=dtype, device=dev) if mu0 is None else mu0
-    done = None
     if tol is not None:
-        done = torch.zeros((k,), dtype=torch.bool, device=dev) if done0 is None \
-            else done0
+        done = torch.zeros((k,), dtype=torch.bool, device=dev)
         iters = torch.zeros((k,), dtype=torch.int32, device=dev)
     primals, duals = [], []
     for _ in range(max_it):
         sq = s_cols * (neg_lin + mu + beta * z)
         u = solver_mat(sq)                          # ONE k-RHS solve
-        if has_eq:
-            lam = (eq_dot(sq) - eq_b) / w1          # (k,)
-            x_new = s_cols * u - lam[None, :] * sv
-        else:
-            x_new = s_cols * u
+        lam = (v @ sq) / w1                         # (k,)
+        x_new = s_cols * u - lam[None, :] * sv
         z_new, mu_new = zmu_update(x_new, mu)
         if tol is not None:
             keep = done[None, :]                    # frozen problems hold
@@ -207,7 +174,7 @@ def admm_boxqp(
         duals.append(dual)
     if tol is None:
         iters = torch.full((k,), max_it, dtype=torch.int32, device=dev)
-    trace = ADMMTrace(torch.stack(primals), torch.stack(duals), iters, done)
+    trace = ADMMTrace(torch.stack(primals), torch.stack(duals), iters)
     return ADMMState(x, z, mu), trace
 
 
@@ -236,8 +203,7 @@ def admm_svm(
     )
     return (ADMMState(*(a[:, 0] for a in state)),
             ADMMTrace(trace.primal_res[:, 0], trace.dual_res[:, 0],
-                      trace.iters_run[0],
-                      None if trace.done is None else trace.done[0]))
+                      trace.iters_run[0]))
 
 
 def admm_svm_batched(

@@ -54,7 +54,7 @@ def _note_evals(count: int) -> None:
 
 def _batched_kernel_block(spec: KernelSpec, xa: torch.Tensor,
                           xb: torch.Tensor) -> torch.Tensor:
-    """``kernel_block`` over (B, ·, f) stacks, one launch — the eval-count seam."""
+    """``kernel_block`` over (B, ·, f) stacks, one kernel call — the eval-count seam."""
     _note_evals(xa.shape[0] * xa.shape[1] * xb.shape[1])
     return kernel_block(spec, xa, xb)
 

@@ -68,13 +68,12 @@ class HSSSVMEngine:
         default_factory=compression.CompressionParams)
     leaf_size: int = 128
     beta: float | None = None     # default: the paper's rule by dataset size
-    max_it: int = 10
+    admm: admm_mod.ADMMParams = dataclasses.field(     # max_it, residual tol
+        default_factory=admm_mod.ADMMParams)
     mesh: object = None
     store_dtype: str | None = None
     task: str = "svm"
-    tol: float | None = None      # ADMM residual early-stop threshold
     stream: object = None
-    admm: admm_mod.ADMMParams | None = None
     device: str | torch.device = "cuda"
 
     # populated by prepare():
@@ -185,15 +184,14 @@ class HSSSVMEngine:
         """ONE batched ADMM run for a fixed C, reusing the factorization."""
         assert self._fac is not None, "call prepare() first"
         fac, ys, pmask = self._fac, self._ys, self._pmask
-        max_it = self.max_it if self.admm is None else self.admm.max_it
-        tol = self.tol if self.admm is None else self.admm.tol
         z0, mu0 = (None, None) if warm is None else warm
 
         _sync(self.device)
         t0 = time.perf_counter()
         task = admm_mod.svm_task(ys, c_value * pmask)
         state, trace = admm_mod.admm_boxqp(
-            fac.solve_mat, task, fac.beta, max_it, tol=tol, z0=z0, mu0=mu0)
+            fac.solve_mat, task, fac.beta, self.admm.max_it, tol=self.admm.tol,
+            z0=z0, mu0=mu0)
         _sync(self.device)
         t1 = time.perf_counter()
         biases = compute_bias_batched(

@@ -17,7 +17,11 @@
 // registers and writes it so that the 32 lanes of a warp store 32
 // consecutive outputs of one row.  The ragged edge is masked (zero-filled
 // loads, skipped stores) instead of padded as the TPU wrapper did.  All
-// offsets are 64-bit: the scoring block alone has 2^31 entries.
+// offsets are 64-bit: the scoring block alone has 2^31 entries.  The batch
+// sits on grid.z, which holds 65535: a larger batch (10^7 points make
+// 131072 leaves at leaf 128) launches in chunks of 65535.  Folding the batch
+// into grid.x instead costs an integer division per thread, which made leaf
+// D 4-17% slower on the card (PERF.md).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
@@ -28,6 +32,7 @@ constexpr int TX = 32, TY = 8;          // 256 threads
 constexpr int TM = 64, TN = 128;        // output tile
 constexpr int RM = TM / TY, RN = TN / TX;
 constexpr int FC = 8;                   // feature chunk staged in shared memory
+constexpr int64_t MAX_GRID_Z = 65535;   // batch entries per launch
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -109,11 +114,17 @@ template <typename T>
 int launch(const void* xa, const void* xb, void* out, int64_t batch, int64_t ma,
            int64_t mb, int64_t f, float scale, void* stream) {
   const dim3 block(TX, TY);
-  const dim3 grid((unsigned)((mb + TN - 1) / TN), (unsigned)((ma + TM - 1) / TM),
-                  (unsigned)batch);
-  gaussian_block_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const T*)xa, (const T*)xb, (T*)out, ma, mb, f, scale);
-  return (int)cudaGetLastError();
+  for (int64_t b0 = 0; b0 < batch; b0 += MAX_GRID_Z) {
+    const int64_t nb = batch - b0 < MAX_GRID_Z ? batch - b0 : MAX_GRID_Z;
+    const dim3 grid((unsigned)((mb + TN - 1) / TN), (unsigned)((ma + TM - 1) / TM),
+                    (unsigned)nb);
+    gaussian_block_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const T*)xa + b0 * ma * f, (const T*)xb + b0 * mb * f,
+        (T*)out + b0 * ma * mb, ma, mb, f, scale);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // namespace

@@ -14,7 +14,8 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
              ctypes.c_float, ctypes.c_void_p]
 _TM = 64          # output tile rows of the kernel (grid.y = ceil(Ma / 64))
-_MAX_GRID_YZ = 65535
+_MAX_GRID_Y = 65535
+_MAX_GRID_Z = 65535   # batch entries per launch (the C launcher chunks the batch)
 
 
 def gaussian_block_cuda(xa: torch.Tensor, xb: torch.Tensor, h: float) -> torch.Tensor:
@@ -31,8 +32,8 @@ def gaussian_block_cuda(xa: torch.Tensor, xb: torch.Tensor, h: float) -> torch.T
         raise ValueError("gaussian_block_cuda needs contiguous inputs")
     batch, ma, f = xa.shape
     mb = xb.shape[1]
-    if batch > _MAX_GRID_YZ or -(-ma // _TM) > _MAX_GRID_YZ:
-        raise ValueError(f"batch {batch} or rows {ma} exceed the launch grid")
+    if -(-ma // _TM) > _MAX_GRID_Y:
+        raise ValueError(f"rows {ma} exceed the launch grid")
     out = torch.empty((batch, ma, mb), dtype=xa.dtype, device=xa.device)
     if out.numel() == 0:
         return out
@@ -42,5 +43,5 @@ def gaussian_block_cuda(xa: torch.Tensor, xb: torch.Tensor, h: float) -> torch.T
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(fn(xa.data_ptr(), xb.data_ptr(), out.data_ptr(),
                         batch, ma, mb, f, scale, stream), "gaussian_block")
-    _build.launch_counts["gaussian_block"] += 1
+    _build.launch_counts["gaussian_block"] += -(-batch // _MAX_GRID_Z)   # chunks
     return out

@@ -10,7 +10,8 @@ def gaussian_block(xa: torch.Tensor, xb: torch.Tensor, h: float) -> torch.Tensor
     """K(xa, xb): (Ma, F) x (Mb, F) -> (Ma, Mb), or batched (B, ·, F) -> (B, Ma, Mb).
 
     The device of the inputs decides: CPU tensors run the plain version,
-    CUDA tensors launch the kernel (one launch, whatever the batch) or raise.
+    CUDA tensors launch the kernel (one launch per 65535 blocks of the
+    batch) or raise.
     """
     if xa.device.type == "cpu":
         return ref.gaussian_block_ref(xa, xb, h)

@@ -5,6 +5,8 @@ CPU tensors) train the binary golden problem of tests/test_golden.py on the
 same numpy data; the stages are also held in isolation by carrying the JAX
 factorization and model across with ``repro_torch.convert``.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,8 +37,8 @@ def trained():
     je = JEngine(spec=JSpec(h=1.0), comp=JParams(**COMP), leaf_size=128, max_it=10)
     je.prepare(xtr, ytr)
     jm, (jz, jmu) = je.train(1.0)
-    te = TEngine(spec=TSpec(h=1.0), comp=TParams(**COMP), leaf_size=128, max_it=10,
-                 device="cpu")
+    te = TEngine(spec=TSpec(h=1.0), comp=TParams(**COMP), leaf_size=128,
+                 admm=tadmm.ADMMParams(max_it=10), device="cpu")
     te.prepare(xtr, ytr)
     tm, (tz, tmu) = te.train(1.0)
     jfac = je.fac
@@ -73,7 +75,10 @@ def test_engine_matches_jax_engine(trained):
     assert rep_t.ranks_post == rep_j.ranks_post
 
 
-@pytest.mark.parametrize("tol", [None, 1e-3])
+# The golden problem's primal residual is 0 and its μ stays 0, so the
+# relative test reduces to dual < tol: 1e-3 never freezes in 12 iterations,
+# 25 freezes at the 6th (the dual residual falls from 30.3 to 20.2).
+@pytest.mark.parametrize("tol", [None, 1e-3, 25.0])
 def test_admm_traces_match_on_shared_factorization(trained, tol):
     """The JAX factorization through the port's ADMM: per-iteration
     primal/dual residuals to 1e-4 relative, z to 1e-5, iters_run equal
@@ -93,6 +98,21 @@ def test_admm_traces_match_on_shared_factorization(trained, tol):
                                    atol=1e-4 * max(1.0, float(np.abs(ref).max())))
     np.testing.assert_allclose(tst.z.numpy(), np.asarray(jst.z), rtol=0, atol=1e-5)
     assert int(ttr.iters_run) == int(jtr.iters_run)
+
+
+def test_engine_tol_freezes_as_admm_svm_batched(trained):
+    """ADMMParams(max_it, tol) on the engine runs the same frozen ADMM as
+    admm_svm_batched with those knobs (held against JAX above)."""
+    te = trained["te"]
+    te_tol = dataclasses.replace(te, admm=tadmm.ADMMParams(max_it=12, tol=25.0),
+                                 _report=dataclasses.replace(te.report))
+    _, (z, _) = te_tol.train(1.0)
+    ys, pmask = _labels(trained)
+    st, tr = tadmm.admm_svm_batched(te.fac.solve_mat, ys, 1.0 * pmask, te.fac.beta,
+                                    12, tol=25.0)
+    assert te_tol.report.iters_run == tuple(tr.iters_run.tolist())
+    assert te_tol.report.iters_run[0] < 12
+    np.testing.assert_array_equal(z.numpy(), st.z.numpy())
 
 
 def test_golden_binary_pins_on_the_port(trained):
