@@ -8,27 +8,45 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 Phases, each printed on its own lines, none of them allowed to fail:
   1. device    — the card's name and power limit (nvidia-smi);
   2. build     — nvcc builds every CUDA kernel of the port from csrc/;
-  3. kernels   — each kernel against its plain PyTorch version on the card,
-                 at the shapes of the main path: K1 on a leaf-D batch, a
-                 coupling batch and one scoring block; K2 on the leaf level
-                 and the first upper level; K3 on a 2^20 block.  Kernel,
-                 plain and bound times in ms;
-  4. small     — a 2048-point engine run on the card against the same run
-                 on the CPU (plain versions): bias and predictions agree;
-  5. main path — HSSSVMEngine prepare / train(C=1) / predict on the
-                 10^6-point blobs SVM at fixed rank 32, leaf 256 (2^20 padded
-                 points, 12 levels); accuracy >= 0.93 and every K1/K2 launch
-                 count equal to what the code implies;
-  6. K3 path   — admm_svm_batched(use_fused_update=True) on the engine's
+  3. kernels   — K1, K4 and K3 against their plain PyTorch versions on the
+                 card, at the shapes of the paths below: K1 and K4 on a
+                 leaf-D batch, a coupling batch, one scoring block and a
+                 batch above 65535 (K4 also in bf16); K3 on a 2^20 block.
+                 Kernel, plain and bound times in ms;
+  4. small     — 2048-point engine runs on the card against the same runs on
+                 the CPU (plain versions), for the three configurations
+                 below: bias and predictions agree;
+  5. main      — HSSSVMEngine prepare / train(C=1) / predict on the
+                 10^6-point blobs SVM, gaussian, fixed rank 32, leaf 256
+                 (2^20 padded points, 12 levels); accuracy >= 0.93.  Then
+                 [check main]: every K1 and K2 launch of the path is run
+                 again by the plain version on the inputs the path gave it
+                 (K2's pivots and R as the path's launch returned them, held
+                 with repro_torch.kernels.compress.verify), and K2 is timed
+                 on the path's leaf and first upper level;
+  6. lap       — the same data with KernelSpec("laplacian", h=2) at the crude
+                 preset (CompressionParams.crude()); accuracy >= 0.93; its
+                 check as above for K4 and K2, and K2 again on the path's
+                 leaf and first upper level with dead candidates added;
+  7. accurate  — 10^6 points of 2-feature circles, gaussian h=1.5, at the
+                 accurate preset (CompressionParams.accurate()), leaf 256;
+                 accuracy >= 0.99, and the adaptive ranks below the cap; its
+                 check as above, with K1 timed on its 2-feature leaf D and
+                 scoring block;
+  8. K3 path   — admm_svm_batched(use_fused_update=True) on the main path's
                  factorization against the unfused run; K3 launched 10 times;
-  7. summary   — one JSON line {"kernels": [...]}, then the last line
+  9. summary   — one JSON line {"kernels": [...]}, then the last line
                  {"ok": true, "device": {...}}.
+Every path runs with the launch counts set to 0 just before it, and checks
+each count just after it against what the code implies; the launches of the
+checks come after that reading.
 
 It exits non-zero, before printing any result, when no CUDA device is
 available or when the repro_torch package is not beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -42,18 +60,42 @@ ROOT = Path(__file__).resolve().parent
 N_TRAIN, N_TEST, N_FEATURES, SEP = 10 ** 6, 2048, 8, 1.6
 H, RANK, N_NEAR, N_FAR, LEAF, MAX_IT, C = 1.0, 32, 32, 32, 256, 10, 1.0
 MIN_ACCURACY = 0.93
+# The laplacian path: the same data and leaf at the crude preset (rtol 1e-2,
+# cap 32, 32 + 32 proxies).
+H_LAP = 2.0
+# The accurate path: benchmarks/bench_svm.py's ADAPTIVE_CASES circles case
+# at paper scale (rtol 1e-4, cap 64, 64 + 128 proxies).
+ACC_FEATURES, ACC_GAP, H_ACC, MIN_ACCURACY_ACC = 2, 0.8, 1.5, 0.99
 
 HOLD_CYCLES = 100_000_000    # ~50 ms of spinning at the H100's ~2 GHz clock
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# Non-FMA f32 operations (an add, a subtract) retire at half the FMA flop
+# rate; exp runs on the special-function units, 16 results per clock per SM
+# (CUDA programming guide, compute capability 9.0) on 132 SMs at the
+# 1.98 GHz that the 67 TFLOP/s figure implies.
+F32_OP_PER_S = F32_FLOP_PER_S / 2
+SFU_PER_S = 16 * 132 * 1.98e9
 
 # Tolerances of kernel against plain version, with their reasons.
 K1_ATOL = 2e-5     # K in [0, 1]; f32 norm/cross sums in another order move sq
                    # by a few ulps of |a|²+|b|², times the exp slope <= 1/2h².
-K2_PIV_MATCH = 0.999   # greedy pivots may flip on near-tied column norms
+# K2: nodes whose live pivots (or adaptive ranks) equal the plain version's.
+# Greedy pivots may flip where two residual norms tie to rounding; every
+# such node must also read as a tie, and stay a greedy pivoted QR along its
+# own pivots after it (repro_torch.kernels.compress.verify).  On 8 features the live
+# directions stay well above f32 noise (slice 1's bound).  On the 2-feature
+# circles |R_ii| falls to 1e-4 of |R_00| within ~5 steps, where an f32 step
+# resolves residual norms only to ~1e-3 of their size, and neighbouring
+# candidates are near-duplicates: ties are that much more frequent.
+K2_PIV_MATCH = 0.999
+K2_PIV_MATCH_F2 = 0.99
 K2_R_ATOL = 1e-4   # R entries are O(sqrt(s)); f32 reorderings of k steps.
+K4_ATOL = 2e-5     # the same f32 L1 sums in the same order; exp's last bits.
+CDIST_COLS = 2 ** 15   # columns per torch.cdist call in K4's yardstick
+K4_BF16_ATOL = 2.0 ** -8   # one bf16 rounding step of K in (0, 1].
 K3_RTOL = 1e-5     # the kernel multiplies by f32(1/beta), the plain version
                    # divides by beta: ~1 ulp, about 100x below this bound.
 FUSED_Z_ATOL = 1e-4    # z in [0, C]; the 1/beta rounding through 10 solves
@@ -108,16 +150,32 @@ def k1_cost(b, ma, mb, f):
     return 4.0 * b * (ma * f + mb * f + ma * mb), float(b) * ma * mb * (2 * f + 5)
 
 
-def k2_cost(b, m, s, f, k):
+def k2_cost(b, m, s, f, k, kernel_name="gaussian"):
     """Bytes: points and mask in, pivots and R out.  Flops per node: the
-    assembly, then per step the qᵀ·column dots, the deflation and the new
-    column norms (6sm), re-orthogonalisation against the i earlier
-    directions (4si) and the normalisations (4s + m).  R = QᵀAᵀ needs no
-    pass of its own: R[i, :] is the row of qᵀ·column dots of step i."""
+    assembly (gaussian 2f+5 per entry; laplacian 2f+2: per feature a
+    subtract and an add whose |.| is an operand modifier, then the division
+    and exp), then per step the qᵀ·column dots,
+    the deflation and the new column norms (6sm), re-orthogonalisation
+    against the i earlier directions (4si) and the normalisations (4s + m).
+    R = QᵀAᵀ needs no pass of its own: R[i, :] is the row of qᵀ·column dots
+    of step i."""
     bytes_moved = 4.0 * b * (m * f + s * f + m + k + k * m)
-    per_node = s * m * (2 * f + 5) + sum(6 * s * m + 4 * s * i + 4 * s + m
-                                         for i in range(k))
+    per_entry = 2 * f + 5 if kernel_name == "gaussian" else 2 * f + 2
+    per_node = s * m * per_entry + sum(6 * s * m + 4 * s * i + 4 * s + m
+                                       for i in range(k))
     return bytes_moved, float(b) * per_node
+
+
+def k4_bound(b, ma, mb, f, elem_bytes):
+    """The larger of: bytes (inputs read once, block written once, in the
+    input type) at the HBM rate, and operations — 2f f32 adds per entry (a
+    subtract, and an add with the |.| as its operand modifier: FADD with
+    |R|, no separate abs) at the non-FMA f32 rate, or one exp per entry at
+    the SFU rate, whichever is longer (the two units run side by side)."""
+    entries = float(b) * ma * mb
+    t_bytes = elem_bytes * (b * (ma + mb) * f + entries) / HBM_BYTES_PER_S * 1e3
+    t_ops = max(2 * f * entries / F32_OP_PER_S, entries / SFU_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def k3_cost(n):
@@ -142,15 +200,17 @@ def main() -> int:
 
     from repro_torch.core import admm as admm_mod
     from repro_torch.core.admm import ADMMParams
-    from repro_torch.core import compression, tree as tree_mod
+    from repro_torch.core import tree as tree_mod
     from repro_torch.core.compression import CompressionParams
     from repro_torch.core.engine import HSSSVMEngine
+    from repro_torch.core.hss import rank_mask
     from repro_torch.core.kernelfn import DEFAULT_SCORE_BLOCK, KernelSpec
     from repro_torch.data import synthetic
     from repro_torch.kernels import _build
     from repro_torch.kernels.admm_update import ops as aops, ref as aref
-    from repro_torch.kernels.compress import kernel as ckern, ref as cref
-    from repro_torch.kernels.gaussian import ops as gops, ref as gref
+    from repro_torch.kernels.compress import kernel as ckern, laplacian as lops, ref as cref
+    from repro_torch.kernels.compress import verify
+    from repro_torch.kernels.gaussian import kernel as gkern, ops as gops, ref as gref
 
     # Full-f32 matmuls throughout (PyTorch's defaults, set here explicitly).
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -171,7 +231,7 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.2f} s")
     for name, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line:
+            if "registers" in line or "Compiling entry" in line:
                 print(f"[build] {name}: {line.split(':', 1)[-1].strip()}")
 
     # ---- 3. kernels against their plain versions, main-path shapes ---- #
@@ -181,20 +241,24 @@ def main() -> int:
     t0 = time.perf_counter()
     tree = tree_mod.build_tree(x_np, LEAF)
     t_tree = time.perf_counter() - t0
+    print(f"[host] build_tree on 2^20 points: {t_tree:.3f} s")
     x_host = x_np[tree.perm]
     x = torch.as_tensor(x_host, device=dev)
     n_leaf = tree.n_leaves
     xl = x.reshape(n_leaf, LEAF, N_FEATURES)
-    rows = {}
 
-    def k1_case(label, xa, xb, reps):
-        out = gops.gaussian_block(xa, xb, H)
-        ref = gref.gaussian_block_ref(xa, xb, H)
-        err = (out - ref).abs().max().item()
+    def k1_case(label, xa, xb, reps, h=H, pads=None):
+        """``pads``: a mask of entries to leave out of the comparison."""
+        out = gops.gaussian_block(xa, xb, h)
+        ref = gref.gaussian_block_ref(xa, xb, h)
+        diff = (out - ref).abs_()
+        if pads is not None:
+            diff.masked_fill_(pads, 0.0)
+        err = diff.max().item()
         rel = err / max(ref.abs().max().item(), 1e-30)
-        del out, ref
-        ms = time_ms(torch, lambda: gops.gaussian_block(xa, xb, H), reps)
-        plain = time_ms(torch, lambda: gref.gaussian_block_ref(xa, xb, H), max(1, reps // 4))
+        del out, ref, diff
+        ms = time_ms(torch, lambda: gops.gaussian_block(xa, xb, h), reps)
+        plain = time_ms(torch, lambda: gref.gaussian_block_ref(xa, xb, h), max(1, reps // 4))
         shape = (1, *xa.shape) if xa.dim() == 2 else tuple(xa.shape)
         b, ma, f = shape
         mb = xb.shape[-2]
@@ -224,57 +288,57 @@ def main() -> int:
     print(f"[kernels] K1 gaussian_block batch {xbig.shape[0]} (above 65535) "
           f"{tuple(xbig.shape)}: max_abs_err {err_big:.3e} (tol {K1_ATOL:g})")
     check(err_big <= K1_ATOL, f"K1 at batch {xbig.shape[0]} disagrees: {err_big}")
+
+    def k4_case(label, xa, xb, reps, time_it=True):
+        tol = K4_ATOL if xa.dtype == torch.float32 else K4_BF16_ATOL
+        out = lops.laplacian_block(xa, xb, H_LAP)
+        ref = cref.laplacian_block_ref(xa, xb, H_LAP)
+        err = (out.float() - ref.float()).abs().max().item()
+        del out, ref
+        torch.cuda.empty_cache()
+        shape = (1, *xa.shape) if xa.dim() == 2 else tuple(xa.shape)
+        b, ma, f = shape
+        mb = xb.shape[-2]
+        row = dict(shape=label, dtype=str(xa.dtype).replace("torch.", ""),
+                   max_abs_err=err)
+        line = (f"[kernels] K4 laplacian_block {label} ({b},{ma},{f})x({b},{mb},{f}) "
+                f"{row['dtype']}: max_abs_err {err:.3e} (tol {tol:g})")
+        if time_it:
+            inv_h = 1.0 / H_LAP
+            ms = time_ms(torch, lambda: lops.laplacian_block(xa, xb, H_LAP), reps)
+            plain = time_ms(torch, lambda: cref.laplacian_block_ref(xa, xb, H_LAP),
+                            max(1, reps // 4))
+            # The yardstick, torch.cdist(p=1) then exp, in f32 only (cdist
+            # takes no bf16), over column chunks of CDIST_COLS: one cdist
+            # launch cannot take the scoring block's 2^20 columns (CUDA's
+            # "invalid configuration argument" on an H100, torch 2.11).
+            def cdist_exp():
+                for c0 in range(0, xb.shape[-2], CDIST_COLS):
+                    torch.cdist(xa, xb[..., c0:c0 + CDIST_COLS, :], p=1).mul_(-inv_h).exp_()
+
+            cdist = (time_ms(torch, cdist_exp, max(1, reps // 4))
+                     if xa.dtype == torch.float32 else None)
+            bms, by = k4_bound(b, ma, mb, f, xa.element_size())
+            row.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                       cdist_exp_ms=cdist)
+            line += (f", kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.cdist(p=1)+exp "
+                     f"{'-' if cdist is None else f'{cdist:.4f}'} ms, "
+                     f"bound {bms:.4f} ms ({by})")
+            torch.cuda.empty_cache()
+        print(line)
+        check(err <= tol, f"K4 {label} disagrees with its plain version: {err}")
+        return row
+
+    k4_rows = [
+        k4_case("leaf D", xl, xl, 20),
+        k4_case("coupling B level 1", xl[0::2, :RANK].contiguous(),
+                xl[1::2, :RANK].contiguous(), 50),
+        k4_case("scoring block", x[:N_TEST], x, 8),
+        k4_case("leaf D bf16", xl.to(torch.bfloat16), xl.to(torch.bfloat16), 20),
+    ]
+    k4_rows.append(k4_case("batch 131072 (above 65535)", xbig, xbig, 0, time_it=False))
     del xbig
     torch.cuda.empty_cache()
-
-    params = CompressionParams(rank=RANK, n_near=N_NEAR, n_far=N_FAR)
-    t0 = time.perf_counter()
-    far_host = compression._host_proxy_indices(tree, params)
-    t1 = time.perf_counter()
-    near_host = compression._host_leaf_near(tree, params, x_host)
-    t2 = time.perf_counter()
-    # The host stages of prepare at the main path's size: they sit inside
-    # compression_s (proxies, KD-tree) or before it (tree).
-    print(f"[host] 2^20 points: build_tree {t_tree:.3f} s, far proxies "
-          f"{t1 - t0:.3f} s, near proxies (KD-tree) {t2 - t1:.3f} s")
-    far = [torch.as_tensor(a, device=dev).long() for a in far_host]
-    near = torch.as_tensor(near_host, device=dev).long()
-    leaf_xp = x[torch.cat([near, far[0]], dim=1)]
-    ones_leaf = torch.ones((n_leaf, LEAF), device=dev)
-
-    def k2_case(label, xc, xp, cm, k, reps):
-        piv, r = ckern.fused_assemble_id_cuda(xc, xp, cm, k, H)
-        piv_ref, r_ref = cref.fused_assemble_id_ref(xc, xp, cm, k, H)
-        same = (piv == piv_ref).all(1)
-        mismatch = int((~same).sum())
-        err = (r - r_ref)[same].abs().max().item()
-        rel = err / max(r_ref[same].abs().max().item(), 1e-30)
-        frac = 1.0 - mismatch / xc.shape[0]
-        ms = time_ms(torch, lambda: ckern.fused_assemble_id_cuda(xc, xp, cm, k, H), reps)
-        plain = time_ms(torch, lambda: cref.fused_assemble_id_ref(xc, xp, cm, k, H), 2)
-        b, m, f = xc.shape
-        s = xp.shape[1]
-        bms, by = bound(*k2_cost(b, m, s, f, k))
-        print(f"[kernels] K2 fused_assemble_id {label} B={b} m={m} s={s} k={k}: "
-              f"pivot mismatches {mismatch}/{b} (need >= {K2_PIV_MATCH:.1%} equal), "
-              f"R max_abs_err {err:.3e} (tol {K2_R_ATOL:g}), max_rel_err {rel:.3e}, "
-              f"kernel {ms:.4f} ms, "
-              f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), "
-              f"smem {ckern.smem_bytes(m, s, k)} B/node")
-        check(frac >= K2_PIV_MATCH, f"K2 {label}: {mismatch} pivot mismatches")
-        check(err <= K2_R_ATOL, f"K2 {label}: R disagrees: {err}")
-        return piv, dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain,
-                         bound_ms=bms, bound_by=by, pivot_mismatches=mismatch)
-
-    piv0, k2_leaf = k2_case("leaf", xl, leaf_xp, ones_leaf, RANK, 5)
-    # First upper level, built exactly as compress builds it.
-    skel = (torch.arange(n_leaf, device=dev)[:, None] * LEAF + piv0.long())
-    cand = skel.reshape(n_leaf // 2, 2 * RANK)
-    sib = cand.reshape(n_leaf // 4, 2, 2 * RANK).flip(1).reshape(n_leaf // 2, 2 * RANK)
-    prox = torch.cat([sib, far[1]], dim=1)
-    _, k2_up = k2_case("level 1", x[cand], x[prox],
-                       torch.ones((n_leaf // 2, 2 * RANK), device=dev), RANK, 20)
-    k2_rows = [k2_leaf, k2_up]
 
     g = torch.Generator(device=dev).manual_seed(0)
     n3 = 2 ** 20
@@ -295,78 +359,290 @@ def main() -> int:
     check(rel3 <= K3_RTOL, f"K3 disagrees with its plain version: {rel3}")
     k3_row = dict(shape="d*k = 2^20", max_abs_err=err3, ms=ms3, plain_ms=plain3,
                   bound_ms=b3, bound_by=by3)
-    del x, xl, leaf_xp, near, far, xz, mz, cz, z_k, m_k, z_r, m_r
+    del x, xl, xz, mz, cz, z_k, m_k, z_r, m_r
     torch.cuda.empty_cache()
 
-    # ---- 4. small engine run: card against CPU ------------------------ #
+    # ---- 4. small engine runs: card against CPU ----------------------- #
+    params = CompressionParams(rank=RANK, n_near=N_NEAR, n_far=N_FAR)
+    crude, acc = CompressionParams.crude(), CompressionParams.accurate()
     xs, ys_, xst, yst = synthetic.train_test("blobs", 2048, 512, seed=3,
                                              n_features=N_FEATURES, sep=SEP)
-    small = {}
-    for where in ("cuda", "cpu"):
-        eng = HSSSVMEngine(spec=KernelSpec(h=H), comp=params, leaf_size=128,
-                           admm=ADMMParams(max_it=MAX_IT), device=where)
-        eng.prepare(xs, ys_)
-        mdl, (zs, _) = eng.train(C)
-        small[where] = (mdl.biases.cpu(), mdl.decision_function(xst).cpu(), zs.cpu())
-    db = (small["cuda"][0] - small["cpu"][0]).abs().max().item()
-    dscore = (small["cuda"][1] - small["cpu"][1]).abs().max().item()
-    dz = (small["cuda"][2] - small["cpu"][2]).abs().max().item()
-    agree = float((torch.sign(small["cuda"][1]) == torch.sign(small["cpu"][1])).float().mean())
-    print(f"[small] n=2048 card vs CPU: |dz| {dz:.3e}, |dbias| {db:.3e}, "
-          f"|dscore| {dscore:.3e}, sign agreement {agree:.4f}")
-    check(dz <= 1e-3 and db <= 1e-3 and dscore <= 1e-3 and agree >= 0.998,
-          "the card and the CPU disagree on the small engine run")
+    configs = {
+        "gaussian fixed": (KernelSpec(h=H), params),
+        "laplacian crude": (KernelSpec("laplacian", H_LAP), crude),
+        "gaussian accurate": (KernelSpec(h=H_ACC), acc),
+    }
+    for label, (spec, comp) in configs.items():
+        small = {}
+        for where in ("cuda", "cpu"):
+            eng = HSSSVMEngine(spec=spec, comp=comp, leaf_size=128,
+                               admm=ADMMParams(max_it=MAX_IT), device=where)
+            rep_s = eng.prepare(xs, ys_)
+            mdl, (zs, _) = eng.train(C)
+            small[where] = (mdl.biases.cpu(), mdl.decision_function(xst).cpu(), zs.cpu(),
+                            rep_s.ranks_post)
+        db = (small["cuda"][0] - small["cpu"][0]).abs().max().item()
+        dscore = (small["cuda"][1] - small["cpu"][1]).abs().max().item()
+        dz = (small["cuda"][2] - small["cpu"][2]).abs().max().item()
+        agree = float((torch.sign(small["cuda"][1])
+                       == torch.sign(small["cpu"][1])).float().mean())
+        print(f"[small] {label} n=2048 card vs CPU: |dz| {dz:.3e}, |dbias| {db:.3e}, "
+              f"|dscore| {dscore:.3e}, sign agreement {agree:.4f}; ranks_post card "
+              f"{small['cuda'][3]} cpu {small['cpu'][3]}")
+        check(dz <= 1e-3 and db <= 1e-3 and dscore <= 1e-3 and agree >= 0.998,
+              f"the card and the CPU disagree on the small {label} engine run")
 
-    # ---- 5. main path ------------------------------------------------- #
-    xtr, ytr, xte, yte = synthetic.train_test(
-        "blobs", N_TRAIN, N_TEST, seed=0, n_features=N_FEATURES, sep=SEP)
-    engine = HSSSVMEngine(spec=KernelSpec(h=H), comp=params, leaf_size=LEAF,
-                          admm=ADMMParams(max_it=MAX_IT), device="cuda")
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launch_counts()
-    t0 = time.perf_counter()
-    rep = engine.prepare(xtr, ytr)
-    model, (z_main, mu_main) = engine.train(C)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    pred = model.predict(xte)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    main_counts = dict(_build.launch_counts)
-    pred = pred.cpu().numpy()
-    acc = float(np.mean(pred == yte))
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[main] n={N_TRAIN} padded={engine.hss.n} levels={rep.hss_levels} "
-          f"beta={rep.beta:g}: compression_s {rep.compression_s:.3f}, "
-          f"factorization_s {rep.factorization_s:.3f}, admm_s {rep.admm_s:.3f}, "
-          f"prepare+train_s {t1 - t0:.3f}, predict_s {t2 - t1:.3f}, "
-          f"memory_mb {rep.memory_mb:.1f}, kernel_evals {rep.kernel_evals}, "
-          f"peak_device_gb {peak_gb:.2f}")
-    print(f"[main] accuracy {acc:.4f} (need >= {MIN_ACCURACY}); "
-          f"launches {json.dumps(main_counts)}")
-    check(pred.shape == (N_TEST,) and np.isin(pred, (-1, 1)).all(),
-          "predictions are not a ±1 vector of the test size")
-    check(bool(torch.isfinite(z_main).all()) and bool(torch.isfinite(model.biases).all()),
-          "non-finite duals or bias")
-    check(acc >= MIN_ACCURACY, f"accuracy {acc} below {MIN_ACCURACY}")
-    # K1: one leaf-D launch, one coupling launch per level, one per scoring
-    # block.  K2: one launch per level that selects skeletons (0..K-1).
-    want_k1 = 1 + rep.hss_levels + -(-N_TEST // DEFAULT_SCORE_BLOCK)
-    want_k2 = rep.hss_levels
-    check(main_counts["gaussian_block"] == want_k1,
-          f"K1 launched {main_counts['gaussian_block']} times, expected {want_k1}")
-    check(main_counts["fused_assemble_id"] == want_k2,
-          f"K2 launched {main_counts['fused_assemble_id']} times, expected {want_k2}")
+    # ---- 5-7. the paths at paper scale, each with its check ----------- #
+    launchers = ((gkern, "gaussian_block_cuda"), (lops, "laplacian_block_cuda"),
+                 (ckern, "fused_assemble_id_cuda"))
 
-    # ---- 6. K3 path: the fused z/mu update ---------------------------- #
-    ys, pmask = engine.problem_labels, engine.problem_masks
-    beta = engine.fac.beta
+    @contextlib.contextmanager
+    def recording():
+        """Keep the arguments of every K1, K4 and K2 launch made inside the
+        block (and K2's pivots and R): the path's own inputs, which its
+        check runs through the plain versions afterwards.  The launchers
+        themselves run once per call, so each launch still counts once."""
+        rec = {name: [] for _, name in launchers}
+        saved = [(mod, name, getattr(mod, name)) for mod, name in launchers]
+        for mod, name, fn in saved:
+            def wrapped(*args, _fn=fn, _name=name):
+                out = _fn(*args)
+                rec[_name].append((args, out if _name == "fused_assemble_id_cuda" else None))
+                return out
+            setattr(mod, name, wrapped)
+        try:
+            yield rec
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+
+    def run_path(tag, spec, comp, data, min_acc):
+        xtr, ytr, xte, yte = data
+        engine = HSSSVMEngine(spec=spec, comp=comp, leaf_size=LEAF,
+                              admm=ADMMParams(max_it=MAX_IT), device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        with recording() as rec:
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            rep = engine.prepare(xtr, ytr)
+            model, (z, _) = engine.train(C)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pred = model.predict(xte)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            counts = dict(_build.launch_counts)
+        pred = pred.cpu().numpy()
+        acc_ = float(np.mean(pred == yte))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[{tag}] kernel={spec.name} h={spec.h} rtol={comp.rtol} n={xtr.shape[0]} "
+              f"padded={engine.hss.n} levels={rep.hss_levels} beta={rep.beta:g}: "
+              f"compression_s {rep.compression_s:.3f}, "
+              f"factorization_s {rep.factorization_s:.3f}, admm_s {rep.admm_s:.3f}, "
+              f"prepare+train_s {t1 - t0:.3f}, predict_s {t2 - t1:.3f}, "
+              f"memory_mb {rep.memory_mb:.1f}, kernel_evals {rep.kernel_evals}, "
+              f"peak_device_gb {peak_gb:.2f}")
+        print(f"[{tag}] ranks_pre {list(rep.ranks_pre)} -> ranks_post "
+              f"{list(rep.ranks_post)}, rank_sum {rep.rank_sum_pre} -> {rep.rank_sum_post}")
+        print(f"[{tag}] accuracy {acc_:.4f} (need >= {min_acc}); "
+              f"launches {json.dumps(counts)}")
+        check(pred.shape == (xte.shape[0],) and np.isin(pred, (-1, 1)).all(),
+              f"{tag}: predictions are not a ±1 vector of the test size")
+        check(bool(torch.isfinite(z).all()) and bool(torch.isfinite(model.biases).all()),
+              f"{tag}: non-finite duals or bias")
+        check(acc_ >= min_acc, f"{tag}: accuracy {acc_} below {min_acc}")
+        # The block kernel of the spec (K1 gaussian, K4 laplacian): one
+        # leaf-D launch, one coupling launch per level, one per scoring
+        # block; K2: one launch per level that selects skeletons (0..K-1).
+        block = "laplacian_block" if spec.name == "laplacian" else "gaussian_block"
+        want = {name: 0 for name in counts}
+        want[block] = 1 + rep.hss_levels + -(-xte.shape[0] // DEFAULT_SCORE_BLOCK)
+        want["fused_assemble_id"] = rep.hss_levels
+        check(counts == want, f"{tag}: launches {counts}, expected {want}")
+        return engine, rep, counts, z, rec
+
+    # The paths pad 10^6 points to 2^20 with far-away points along the first
+    # axis (tree.pad_dataset).  Between two pads the f32 norm expansion of the
+    # Gaussian block is cancellation noise, 0 or 1, in the kernel and in the
+    # plain version alike (ROADMAP queue 3): the checks of the Gaussian paths
+    # leave pad-pad entries, and the K2 nodes that hold any, out.  A pad is a
+    # point beyond the largest first coordinate of the real data.
+    def pad_pairs(xa, xb, spec, pad_from):
+        """(…, Ma, Mb) mask of the pad-pad entries, or None (laplacian: its
+        L1 distances between pads are exact)."""
+        if spec.name == "laplacian":
+            return None
+        return (xa[..., :, 0] > pad_from)[..., :, None] & (xb[..., :, 0] > pad_from)[..., None, :]
+
+    def check_blocks(tag, launches, kernel_fn, plain_fn, tol, spec, pad_from):
+        """Run each recorded K1/K4 launch again, kernel and plain version on
+        the same inputs (these launches come after the path's count)."""
+        worst, skipped = 0.0, 0
+        for n, (args, _) in enumerate(launches):
+            diff = (kernel_fn(*args).float() - plain_fn(*args).float()).abs_()
+            pads = pad_pairs(args[0], args[1], spec, pad_from)
+            if pads is not None:
+                skipped += int(pads.sum())
+                diff.masked_fill_(pads, 0.0)
+            err = diff.max().item()
+            del diff, pads
+            torch.cuda.empty_cache()
+            shape = "x".join(str(tuple(t.shape)) for t in args[:2])
+            check(err <= tol, f"{tag}: launch {n} {shape} disagrees with its plain version: {err}")
+            worst = max(worst, err)
+        print(f"[check {tag}] {kernel_fn.__name__}: {len(launches)} launches of the path "
+              f"against the plain version, max_abs_err {worst:.3e} (tol {tol:g}); "
+              f"{skipped} pad-pad entries left out")
+
+    def compare_k2(tag, label, args, out, rtol, min_match, spec, pad_from):
+        """K2's (piv, R) on one level against the plain version's on the
+        same inputs: live-slot pivots and ranks, each mismatch a rounding tie
+        that stays a greedy pivoted QR after it, R on the agreeing nodes'
+        live rows."""
+        xc, xp, cm, k, h, kind = args
+        piv, r = out
+        pads = pad_pairs(xc, xp, spec, pad_from)
+        dropped = 0
+        if pads is not None:
+            keep = ~pads.flatten(1).any(1)
+            dropped = int((~keep).sum())
+            if dropped:
+                xc, xp, cm, piv, r = xc[keep], xp[keep], cm[keep], piv[keep], r[keep]
+        piv_ref, r_ref = cref.fused_assemble_id_ref(xc, xp, cm, k, h, kind)
+        res = verify.compare_row_ids(xc, xp, cm, h, kind, rtol, piv, r, piv_ref, r_ref)
+        del piv_ref, r_ref, piv, r
+        b, m, f = xc.shape
+        print(f"[check {tag}] K2 {kind} {label} B={b} m={m} s={xp.shape[1]} k={k} f={f} "
+              f"({dropped} nodes with pad-pad entries left out), "
+              f"{int((cm == 0).sum())} dead candidates: live-pivot mismatches "
+              f"{res['mismatches']}/{b}" + (f" (need >= {min_match:.1%} equal)"
+                                              if min_match is not None else "")
+              + f", not rounding ties {res['untied']} (worst gap {res['worst_gap']:.3g} of "
+              f"the bound), off greedy past the divergence {res['off_greedy']} (worst step "
+              f"{res['worst_step_gap']:.3g} of the bound; residual ratio to the plain "
+              f"skeleton's {res['worst_ratio']:.4g}), R max_abs_err {res['r_err']:.3e} "
+              f"(tol {K2_R_ATOL:g})")
+        check(min_match is None or 1 - res["mismatches"] / b >= min_match,
+              f"K2 {tag} {label}: {res['mismatches']} of {b} nodes differ")
+        check(res["untied"] == 0, f"K2 {tag} {label}: {res['untied']} pivot mismatches "
+              "beyond rounding ties")
+        check(res["off_greedy"] == 0, f"K2 {tag} {label}: {res['off_greedy']} nodes "
+              "leave greedy pivoted QR past their divergence")
+        check(res["r_err"] <= K2_R_ATOL, f"K2 {tag} {label}: R disagrees: {res['r_err']}")
+        return res
+
+    def k2_row(tag, label, args, reps, plain_reps, extra=None):
+        """Device times of K2 and its plain version on one level's inputs."""
+        xc, xp, cm, k, h, kind = args
+        ms = time_ms(torch, lambda: ckern.fused_assemble_id_cuda(*args), reps)
+        plain = time_ms(torch, lambda: cref.fused_assemble_id_ref(*args), plain_reps)
+        torch.cuda.empty_cache()
+        b, m, f = xc.shape
+        s_ = xp.shape[1]
+        bms, by = bound(*k2_cost(b, m, s_, f, k, kind))
+        q_global = ckern.plan(m, s_, k, torch.cuda.current_device()) == ckern.Q_IN_GLOBAL
+        print(f"[kernels] K2 fused_assemble_id {kind} {tag} {label} B={b} m={m} s={s_} "
+              f"k={k} f={f}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms "
+              f"({by}), smem {ckern.smem_bytes(m, s_, k, q_global)} B/node, "
+              f"Q in {'global' if q_global else 'shared'} memory")
+        return dict(shape=f"{kind} {tag} {label}", ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, q_memory="global" if q_global else "shared",
+                    **(extra or {}))
+
+    def check_path(tag, rec, spec, comp, min_match, plain_reps, pad_from):
+        """Hold every launch of the path against the plain version, then
+        time K2 on the path's leaf and first upper level."""
+        if spec.name == "laplacian":
+            check_blocks(tag, rec["laplacian_block_cuda"], lops.laplacian_block_cuda,
+                         cref.laplacian_block_ref, K4_ATOL, spec, pad_from)
+        else:
+            check_blocks(tag, rec["gaussian_block_cuda"], gkern.gaussian_block_cuda,
+                         gref.gaussian_block_ref, K1_ATOL, spec, pad_from)
+        levels = rec["fused_assemble_id_cuda"]
+        total = mism = 0
+        rows = []
+        for lvl, (args, out) in enumerate(levels):
+            label = "leaf" if lvl == 0 else f"level {lvl}"
+            res = compare_k2(tag, label, args, out, comp.rtol,
+                             min_match if lvl <= 1 else None, spec, pad_from)
+            total += res["nodes"]
+            mism += res["mismatches"]
+            if lvl <= 1:
+                rows.append(k2_row(tag, label, args, 5 if lvl == 0 else 20, plain_reps,
+                                   dict(max_abs_err=res["r_err"],
+                                        pivot_mismatches=res["mismatches"],
+                                        untied_mismatches=res["untied"])))
+        print(f"[check {tag}] K2 over the path's {len(levels)} levels: {mism}/{total} nodes "
+              f"differ on live pivots (need >= {min_match:.1%} equal)")
+        check(1 - mism / total >= min_match, f"K2 {tag}: {mism} of {total} nodes differ")
+        return rows
+
+    blobs = synthetic.train_test("blobs", N_TRAIN, N_TEST, seed=0,
+                                 n_features=N_FEATURES, sep=SEP)
+    engine, rep, main_counts, z_main, rec = run_path("main", KernelSpec(h=H), params,
+                                                     blobs, MIN_ACCURACY)
+    pad_from = float(blobs[0][:, 0].max())
+    k2_rows = check_path("main", rec, KernelSpec(h=H), params, K2_PIV_MATCH, 2, pad_from)
+    del rec
+    main_beta, main_n = engine.fac.beta, engine.hss.n
+    ys, pmask, main_fac = engine.problem_labels, engine.problem_masks, engine.fac
+    del engine
+    torch.cuda.empty_cache()
+
+    lap_spec = KernelSpec("laplacian", H_LAP)
+    lap_engine, rep_lap, lap_counts, _, rec = run_path("lap", lap_spec, crude, blobs,
+                                                       MIN_ACCURACY)
+    check_path("lap", rec, lap_spec, crude, K2_PIV_MATCH, 2, pad_from)
+    # K2's laplacian branch with dead candidates on the path's own inputs:
+    # 10% of the leaf's candidates, and at level 1 the slots past ranks
+    # drawn in [16, 32] (on these blobs every rank is at the cap of 32, so
+    # the path's own masks are all ones).
+    gen = torch.Generator(device=dev).manual_seed(2)
+    (xc0, xp0, cm0, k0, h0, kind0), _ = rec["fused_assemble_id_cuda"][0]
+    (xc1, xp1, cm1, k1, h1, kind1), _ = rec["fused_assemble_id_cuda"][1]
+    dead0 = cm0 * (torch.rand(cm0.shape, device=dev, generator=gen) >= 0.1).float()
+    ranks = torch.randint(16, k0 + 1, (2 * xc1.shape[0],), device=dev, generator=gen)
+    dead1 = cm1 * rank_mask(ranks, k0).reshape(-1, 2 * k0)
+    for label, args, reps in (("leaf, dead candidates", (xc0, xp0, dead0, k0, h0, kind0), 5),
+                              ("level 1, dead candidates", (xc1, xp1, dead1, k1, h1, kind1),
+                               20)):
+        res = compare_k2("lap", label, args, ckern.fused_assemble_id_cuda(*args),
+                         crude.rtol, K2_PIV_MATCH, lap_spec, pad_from)
+        k2_rows.append(k2_row("lap", label, args, reps, 2, dict(
+            max_abs_err=res["r_err"], pivot_mismatches=res["mismatches"],
+            untied_mismatches=res["untied"], dead_candidates=int((args[2] == 0).sum()))))
+    del lap_engine, blobs, rec, xc0, xp0, cm0, xc1, xp1, cm1, dead0, dead1
+    torch.cuda.empty_cache()
+
+    circles = synthetic.train_test("circles", N_TRAIN, N_TEST, seed=0,
+                                   n_features=ACC_FEATURES, gap=ACC_GAP)
+    acc_spec = KernelSpec(h=H_ACC)
+    acc_engine, rep_acc, acc_counts, _, rec = run_path("accurate", acc_spec, acc, circles,
+                                                       MIN_ACCURACY_ACC)
+    check(rep_acc.rank_sum_post < rep_acc.rank_sum_pre,
+          f"accurate: rank_sum_post {rep_acc.rank_sum_post} not below "
+          f"rank_sum_pre {rep_acc.rank_sum_pre}")
+    check(rep_acc.ranks_post[0] < acc.rank,
+          f"accurate: leaf rank {rep_acc.ranks_post[0]} not below the cap {acc.rank}")
+    acc_pad_from = float(circles[0][:, 0].max())
+    k2_rows += check_path("accurate", rec, acc_spec, acc, K2_PIV_MATCH_F2, 1, acc_pad_from)
+    # K1 on the path's 2-feature inputs: its leaf D (first launch) and its
+    # scoring block (last launch), timed; pad-pad entries left out.
+    blocks = rec["gaussian_block_cuda"]
+    k1_rows += [k1_case(f"accurate path {label}, 2 features", xa, xb, reps, h=H_ACC,
+                        pads=pad_pairs(xa, xb, acc_spec, acc_pad_from))
+                for label, (xa, xb, _), reps in (("leaf D", blocks[0][0], 20),
+                                                 ("scoring block", blocks[-1][0], 8))]
+    del acc_engine, circles, rec, blocks
+    torch.cuda.empty_cache()
+
+    # ---- 8. K3 path: the fused z/mu update ---------------------------- #
     _build.reset_launch_counts()
-    st_f, tr_f = admm_mod.admm_svm_batched(engine.fac.solve_mat, ys, C * pmask, beta,
+    st_f, tr_f = admm_mod.admm_svm_batched(main_fac.solve_mat, ys, C * pmask, main_beta,
                                            MAX_IT, use_fused_update=True)
     torch.cuda.synchronize()
     k3_counts = dict(_build.launch_counts)
-    st_u, tr_u = admm_mod.admm_svm_batched(engine.fac.solve_mat, ys, C * pmask, beta,
+    st_u, tr_u = admm_mod.admm_svm_batched(main_fac.solve_mat, ys, C * pmask, main_beta,
                                            MAX_IT)
     dz = (st_f.z - st_u.z).abs().max().item()
     dmu = (st_f.mu - st_u.mu).abs().max().item() / max(1.0, st_u.mu.abs().max().item())
@@ -375,20 +651,26 @@ def main() -> int:
     ddr = ((tr_f.dual_res - tr_u.dual_res).abs().max()
            / tr_u.dual_res.abs().max().clamp(min=1e-30)).item()
     dz_engine = (st_u.z - z_main).abs().max().item()
-    print(f"[k3-path] fused vs unfused, {MAX_IT} iterations at d={engine.hss.n}: "
+    print(f"[k3-path] fused vs unfused, {MAX_IT} iterations at d={main_n}: "
           f"|dz| {dz:.3e} (tol {FUSED_Z_ATOL:g}), mu rel {dmu:.3e}, primal rel {dpr:.3e}, "
           f"dual rel {ddr:.3e} (tol {FUSED_RTOL:g}); unfused vs engine |dz| "
           f"{dz_engine:.3e}; launches {json.dumps(k3_counts)}")
     check(dz <= FUSED_Z_ATOL and max(dmu, dpr, ddr) <= FUSED_RTOL,
           "the fused ADMM run disagrees with the unfused one")
     check(dz_engine <= FUSED_Z_ATOL, "admm_svm_batched disagrees with the engine's run")
-    check(k3_counts["zmu_update"] == MAX_IT,
-          f"K3 launched {k3_counts['zmu_update']} times, expected {MAX_IT}")
+    want3 = {name: 0 for name in k3_counts}
+    want3["zmu_update"] = MAX_IT
+    check(k3_counts == want3, f"K3 path launches {k3_counts}, expected {want3}")
 
-    # ---- 7. summary --------------------------------------------------- #
-    def entry(name, source, replaces, launches, main_row, rows_all):
+    # ---- 9. summary --------------------------------------------------- #
+    by_path = {"main": main_counts, "lap": lap_counts, "accurate": acc_counts,
+               "k3-path": k3_counts}
+
+    def entry(name, source, replaces, path, main_row, rows_all):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=launches, shape=main_row["shape"],
+                    launches=by_path[path][name], launches_path=path,
+                    launches_by_path={p: c[name] for p, c in by_path.items()},
+                    shape=main_row["shape"],
                     max_abs_err=max(r["max_abs_err"] for r in rows_all),
                     ms=main_row["ms"], plain_ms=main_row["plain_ms"],
                     bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
@@ -396,14 +678,13 @@ def main() -> int:
 
     kernels = [
         entry("gaussian_block", "src/repro_torch/csrc/gaussian_block.cu",
-              "src/repro/kernels/gaussian/kernel.py:37",
-              main_counts["gaussian_block"], k1_rows[2], k1_rows),
+              "src/repro/kernels/gaussian/kernel.py:37", "main", k1_rows[2], k1_rows),
         entry("fused_assemble_id", "src/repro_torch/csrc/fused_assemble_id.cu",
-              "src/repro/kernels/compress/kernel.py:142",
-              main_counts["fused_assemble_id"], k2_rows[0], k2_rows),
+              "src/repro/kernels/compress/kernel.py:142", "main", k2_rows[0], k2_rows),
         entry("zmu_update", "src/repro_torch/csrc/zmu_update.cu",
-              "src/repro/kernels/admm_update/kernel.py:28",
-              k3_counts["zmu_update"], k3_row, [k3_row]),
+              "src/repro/kernels/admm_update/kernel.py:28", "k3-path", k3_row, [k3_row]),
+        entry("laplacian_block", "src/repro_torch/csrc/laplacian_block.cu",
+              "src/repro/kernels/compress/laplacian.py:47", "lap", k4_rows[2], k4_rows),
     ]
     print(f"[summary] card {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -26,15 +26,21 @@ def _t(a: np.ndarray, device) -> torch.Tensor:
 def hss_from_numpy(*, x: np.ndarray, d_leaf: np.ndarray, u_leaf: np.ndarray,
                    skel_leaf: np.ndarray, transfers: Sequence[np.ndarray],
                    skels: Sequence[np.ndarray], b_mats: Sequence[np.ndarray],
-                   levels: int, leaf_size: int, device="cuda") -> HSSMatrix:
-    """A fixed-rank ``HSSMatrix`` from its arrays."""
+                   levels: int, leaf_size: int,
+                   leaf_ranks: np.ndarray | None = None,
+                   level_ranks: Sequence[np.ndarray] = (),
+                   device="cuda") -> HSSMatrix:
+    """An ``HSSMatrix`` from its arrays; ``leaf_ranks``/``level_ranks`` make
+    it an adaptive-rank one."""
     return HSSMatrix(
         x=_t(x, device), d_leaf=_t(d_leaf, device), u_leaf=_t(u_leaf, device),
         skel_leaf=_t(skel_leaf, device),
         transfers=tuple(_t(a, device) for a in transfers),
         skels=tuple(_t(a, device) for a in skels),
         b_mats=tuple(_t(a, device) for a in b_mats),
-        levels=int(levels), leaf_size=int(leaf_size))
+        levels=int(levels), leaf_size=int(leaf_size),
+        leaf_ranks=None if leaf_ranks is None else _t(leaf_ranks, device),
+        level_ranks=tuple(_t(a, device) for a in level_ranks))
 
 
 def factorization_from_numpy(*, e_leaf: np.ndarray, g_leaf: np.ndarray,
@@ -56,9 +62,11 @@ def factorization_from_numpy(*, e_leaf: np.ndarray, g_leaf: np.ndarray,
 
 def engine_model_from_numpy(*, x_perm: np.ndarray, z_y: np.ndarray,
                             biases: np.ndarray, classes: np.ndarray, h: float,
+                            kernel_name: str = "gaussian",
                             beta: float | None = None, c_value: float = 1.0,
                             device="cuda") -> EngineModel:
-    """A binary gaussian ``EngineModel``; ``z_y`` is (d, 1) or (d,)."""
+    """A binary ``EngineModel`` of kernel ``kernel_name``; ``z_y`` is (d, 1)
+    or (d,)."""
     classes = np.asarray(classes)
     if classes.shape[0] != 2:
         raise NotImplementedError("multiclass models are ROADMAP queue 1 item 7")
@@ -66,5 +74,6 @@ def engine_model_from_numpy(*, x_perm: np.ndarray, z_y: np.ndarray,
     return EngineModel(
         x_perm=_t(np.asarray(x_perm, np.float32), device), z_y=_t(z_y, device),
         biases=_t(np.asarray(biases, np.float32).reshape(-1), device),
-        classes=classes, spec=KernelSpec(h=float(h)), c_value=float(c_value),
+        classes=classes, spec=KernelSpec(kernel_name, float(h)),
+        c_value=float(c_value),
         beta=None if beta is None else float(beta))

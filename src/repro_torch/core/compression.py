@@ -1,7 +1,7 @@
 """HSS-ANN-style compression of a kernel matrix, partially matrix-free.
 
-Counterpart of ``repro.core.compression`` (the resident, single-device,
-fixed-rank ``compress``).  Paper §3.1 / Chávez et al. IPDPS'20:
+Counterpart of ``repro.core.compression`` (the resident, single-device
+``compress``, fixed or adaptive rank).  Paper §3.1 / Chávez et al. IPDPS'20:
 
   * proxy columns per node = NEAR points (KD-tree neighbours of a leaf; the
     sibling's candidate skeletons above) + FAR points (uniform sample of the
@@ -10,7 +10,10 @@ fixed-rank ``compress``).  Paper §3.1 / Chávez et al. IPDPS'20:
     draws them, so both packages pick the same proxies;
   * skeleton selection per node = interpolative decomposition via pivoted QR
     on the sampled block, one batched launch per tree level (kernel K2);
-  * total kernel evaluations O(N · n_proxy) — never the full matrix.
+  * total kernel evaluations O(N · n_proxy) — never the full matrix;
+  * with ``CompressionParams.rtol`` set, each node's numerical rank is
+    detected from the pivoted-QR diagonal decay; the arrays keep the rank
+    cap's shape and the truncated slots are exact zeros.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.hss import HSSMatrix
+from repro_torch.core.hss import HSSMatrix, rank_mask
 from repro_torch.core.kernelfn import KernelSpec, kernel_block
 from repro_torch.core.tree import ClusterTree
 from repro_torch.kernels.compress import ops as cops
@@ -59,27 +62,36 @@ def _batched_kernel_block(spec: KernelSpec, xa: torch.Tensor,
     return kernel_block(spec, xa, xb)
 
 
-def _batched_row_id(spec: KernelSpec, xc: torch.Tensor, xp: torch.Tensor, k: int
+def _batched_row_id(spec: KernelSpec, xc: torch.Tensor, xp: torch.Tensor, k: int,
+                    rtol: float | None, adaptive: bool,
+                    cmask: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """All row IDs of one tree level through the fused assemble+ID wrapper.
 
-    xc (B, m, f) candidate points, xp (B, s, f) proxy points.  Returns
-    (piv (B, k) int32, p_mat (B, m, k), ranks (B,) int32).  On the card the
-    sampled blocks K(xc_i, xp_i) live only in shared memory; on the CPU the
-    wrapper runs the plain assemble + ``cpqr_select`` + ``finish_interp``.
+    xc (B, m, f) candidate points, xp (B, s, f) proxy points, cmask (B, m)
+    candidate liveness.  Returns (piv (B, k) int32, p_mat (B, m, k), ranks
+    (B,) int32).  On the card the sampled blocks K(xc_i, xp_i) live only in
+    shared memory; on the CPU the wrapper runs the plain assemble +
+    ``cpqr_select`` + ``finish_interp``.
     """
     _note_evals(xc.shape[0] * xc.shape[1] * xp.shape[1])
-    return cops.batched_assemble_id(xc, xp, k, h=spec.h, rtol=1e-5)
+    return cops.batched_assemble_id(
+        xc, xp, k, h=spec.h, rtol=1e-5 if rtol is None else rtol,
+        kernel_name=spec.name, adaptive=adaptive, cmask=cmask)
 
 
 @dataclasses.dataclass(frozen=True)
 class CompressionParams:
     """Accuracy knobs, analogous to the paper's STRUMPACK parameters.
 
-    rank    ~ hss_max_rank (per level), the fixed rank of every node
+    rtol    ~ rel_tol (Table 4 "crude": 1e-2, Table 5 "accurate": 1e-4).
+              None = fixed rank: every node stores ``rank`` columns.  A float
+              switches on the adaptive build: each node's numerical rank is
+              detected against rtol, truncated columns are exact zeros, and
+              ``hss.shrink_to_fit`` slices each level to its largest rank.
+    rank    ~ hss_max_rank (per level): the rank itself, or its cap with rtol
     n_near  ~ hss_approximate_neighbors
     n_far   — far-field proxy sample size
-    rtol    — the adaptive-rank tolerance; only None (fixed rank) is ported.
     """
 
     rank: int = 32
@@ -88,14 +100,19 @@ class CompressionParams:
     seed: int = 0
     rtol: float | None = None
 
-    def __post_init__(self):
-        if self.rtol is not None:
-            raise NotImplementedError(
-                "adaptive rank (CompressionParams.rtol) is ROADMAP queue 1 item 6")
-
     @property
     def n_proxy(self) -> int:
         return self.n_near + self.n_far
+
+    @classmethod
+    def crude(cls, **kw) -> "CompressionParams":
+        """Paper Table 4 regime: loose tolerance, small cap/neighbourhoods."""
+        return cls(**{**dict(rank=32, n_near=32, n_far=32, rtol=1e-2), **kw})
+
+    @classmethod
+    def accurate(cls, **kw) -> "CompressionParams":
+        """Paper Table 5 regime: tight tolerance, larger cap/neighbourhoods."""
+        return cls(**{**dict(rank=64, n_near=64, n_far=128, rtol=1e-4), **kw})
 
 
 def kernel_eval_count(tree: ClusterTree, params: CompressionParams) -> int:
@@ -115,6 +132,17 @@ def kernel_eval_count(tree: ClusterTree, params: CompressionParams) -> int:
         total += n_k * (2 * r_prev) * (2 * r_prev + params.n_far)
         r_prev = min(params.rank, 2 * r_prev)
     return total
+
+
+def _cand_mask(ranks: torch.Tensor, rp: int, dtype) -> torch.Tensor:
+    """(2·n,) child rank vector -> (n, 2·rp) candidate-slot liveness: the two
+    children's ``rank_mask`` rows side by side, one row per parent."""
+    return rank_mask(ranks, rp, dtype).reshape(-1, 2 * rp)
+
+
+def _mask_b(b: torch.Tensor, cm: torch.Tensor, rp: int) -> torch.Tensor:
+    """Zero B rows/columns of dead child skeletons (exact structural zeros)."""
+    return b * cm[:, :rp, None] * cm[:, rp:][:, None, :]
 
 
 def _complement_sample(
@@ -227,6 +255,7 @@ def compress(
     if x_perm.shape[0] != n:
         raise ValueError(f"x has {x_perm.shape[0]} rows, tree expects {n}")
     r0 = min(params.rank, m)
+    adaptive, rtol = params.rtol is not None, params.rtol
 
     if isinstance(x_perm, np.ndarray):
         x_host = x_perm
@@ -245,7 +274,8 @@ def compress(
     d_leaf = _batched_kernel_block(spec, x_leaves, x_leaves)
 
     prox0 = torch.cat([leaf_near, far_idx[0]], dim=1)
-    piv0, u_leaf, _ = _batched_row_id(spec, x_leaves, x_perm[prox0], r0)
+    piv0, u_leaf, leaf_ranks = _batched_row_id(
+        spec, x_leaves, x_perm[prox0], r0, rtol, adaptive)
     leaf_starts = torch.arange(n_leaf, dtype=torch.int32, device=dev) * m
     skel_leaf = leaf_starts[:, None] + piv0
 
@@ -253,25 +283,34 @@ def compress(
     transfers: list[torch.Tensor] = []
     skels: list[torch.Tensor] = []
     b_mats: list[torch.Tensor] = []
+    level_ranks: list[torch.Tensor] = []
     skel_prev = skel_leaf                     # (n_{k-1}, r_{k-1})
+    rank_prev = leaf_ranks                    # (n_{k-1},) numerical ranks
     r_prev = r0
     for k in range(1, K + 1):
         n_k = 2 ** (K - k)
         cand = skel_prev.reshape(n_k, 2 * r_prev).long()   # children skeleton ids
-        # B couplings: K(skel_c1, skel_c2) — pure kernel evaluations.
-        b_mats.append(_batched_kernel_block(
-            spec, x_perm[cand[:, :r_prev]], x_perm[cand[:, r_prev:]]))
+        # B couplings: K(skel_c1, skel_c2) — pure kernel evaluations.  In the
+        # adaptive build the rows/columns of dead skeletons are exact zeros.
+        b_k = _batched_kernel_block(
+            spec, x_perm[cand[:, :r_prev]], x_perm[cand[:, r_prev:]])
+        cmask = _cand_mask(rank_prev, r_prev, x_perm.dtype) if adaptive else None
+        b_mats.append(_mask_b(b_k, cmask, r_prev) if adaptive else b_k)
         if k == K:
             break
         r_k = min(params.rank, 2 * r_prev)
         # NEAR proxies: the sibling node's candidate skeletons.
         sib = cand.reshape(n_k // 2, 2, 2 * r_prev).flip(1).reshape(n_k, 2 * r_prev)
         prox = torch.cat([sib, far_idx[k]], dim=1)
-        piv_k, t_k, _ = _batched_row_id(spec, x_perm[cand], x_perm[prox], r_k)
+        # Dead candidates (adaptive) are zero rows of the sampled block: they
+        # get zero interpolation weights and sort behind every live pivot.
+        piv_k, t_k, rank_k = _batched_row_id(
+            spec, x_perm[cand], x_perm[prox], r_k, rtol, adaptive, cmask=cmask)
         skel_k = torch.gather(cand, 1, piv_k.long()).to(torch.int32)
         transfers.append(t_k)
         skels.append(skel_k)
-        skel_prev, r_prev = skel_k, r_k
+        level_ranks.append(rank_k)
+        skel_prev, rank_prev, r_prev = skel_k, rank_k, r_k
 
     return HSSMatrix(
         x=x_perm,
@@ -283,4 +322,6 @@ def compress(
         b_mats=tuple(b_mats),
         levels=K,
         leaf_size=m,
+        leaf_ranks=leaf_ranks if adaptive else None,
+        level_ranks=tuple(level_ranks) if adaptive else (),
     )

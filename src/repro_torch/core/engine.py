@@ -6,10 +6,13 @@ factorization → ADMM → bias → prediction, on one device.  Everything the
 engine builds lives on ``device`` ("cuda" unless the caller asks for
 another); nothing moves between devices behind the caller's back.
 
-Outside this slice — multiclass labels, ``task`` other than "svm", a mesh,
-a streamed build, bf16 factor storage, adaptive rank or adaptive ρ — the
-engine raises NotImplementedError naming the ROADMAP queue item that ports
-it.
+Both kernels (``KernelSpec("gaussian" | "laplacian")``), fixed or adaptive
+rank (``CompressionParams.rtol``, the ``.crude()``/``.accurate()`` presets;
+an adaptive build is shrunk to its observed ranks before factorizing), and
+f32 or bf16 factor storage (``store_dtype``).  Outside this slice —
+multiclass labels, ``task`` other than "svm", a mesh, a streamed build or
+adaptive ρ — the engine raises NotImplementedError naming the ROADMAP queue
+item that ports it.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import torch
 
 from repro_torch.core import admm as admm_mod
 from repro_torch.core import compression, factorization, tree as tree_mod
-from repro_torch.core.hss import HSSMatrix
+from repro_torch.core.hss import HSSMatrix, shrink_report
 from repro_torch.core.kernelfn import (
     DEFAULT_SCORE_BLOCK, KernelSpec, kernel_matvec_streamed,
 )
@@ -92,8 +95,6 @@ class HSSSVMEngine:
             raise NotImplementedError("a mesh is ROADMAP queue 1 item 13")
         if self.stream is not None:
             raise NotImplementedError("the streamed build is ROADMAP queue 1 item 10")
-        if self.store_dtype is not None:
-            raise NotImplementedError("store_dtype is ROADMAP queue 1 item 6")
         self.device = torch.device(self.device)
 
     # ------------------------------------------------------------------ #
@@ -119,10 +120,14 @@ class HSSSVMEngine:
         t0 = time.perf_counter()
         hss = compression.compress(xp_host, t, self.spec, self.comp,
                                    device=self.device)
+        # Adaptive builds: slice every level to its observed max rank before
+        # factorizing, so the factorization and every solve run at the
+        # detected ranks.  Fixed-rank builds pass through.
+        hss, rank_info = shrink_report(hss)
         _sync(self.device)
         t1 = time.perf_counter()
         beta = self.beta if self.beta is not None else admm_mod.paper_beta(d_real)
-        fac = factorization.factorize(hss, beta)
+        fac = factorization.factorize(hss, beta, store_dtype=self.store_dtype)
         _sync(self.device)
         t2 = time.perf_counter()
 
@@ -130,7 +135,6 @@ class HSSSVMEngine:
         self._ys = torch.as_tensor(ys, device=self.device)
         self._pmask = torch.as_tensor(pmasks, device=self.device)
         self._classes = classes
-        ranks = tuple(hss.ranks)
         self._report = FitReport(
             compression_s=t1 - t0,
             factorization_s=t2 - t1,
@@ -138,9 +142,8 @@ class HSSSVMEngine:
             memory_mb=hss.memory_bytes() / 1e6,
             hss_levels=t.levels,
             beta=beta,
-            ranks_pre=ranks, ranks_post=ranks,
-            rank_sum_pre=hss.stored_rank_sum(), rank_sum_post=hss.stored_rank_sum(),
             kernel_evals=compression.kernel_eval_count(t, self.comp),
+            **rank_info,
         )
         return self._report
 

@@ -12,13 +12,26 @@ kernel case (paper §3.1):
 
 Level indexing: k = 0 are the leaves, k = K = levels is the root; level k
 has n_k = 2**(K-k) nodes.  Arrays are stacked over nodes per level, so every
-operation is a batch of small dense products.  Fixed rank only.
+operation is a batch of small dense products.  An adaptive-rank build
+carries per-node rank vectors; ``shrink_to_fit`` slices each level down to
+its largest observed rank.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+
+def rank_mask(ranks: torch.Tensor, cap: int, dtype=torch.float32) -> torch.Tensor:
+    """(n,) per-node rank vector -> (n, cap) skeleton-liveness mask.
+
+    1.0 on live slots (j < rank), 0.0 on truncated ones: the one definition
+    of liveness that compression, ``HSSMatrix.rank_masks`` and the
+    factorization share.
+    """
+    return (torch.arange(cap, device=ranks.device)[None, :]
+            < ranks[:, None]).to(dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +47,11 @@ class HSSMatrix:
     b_mats: tuple[torch.Tensor, ...]      # per k = 1..K: (n_k, r_{k-1}, r_{k-1})
     levels: int
     leaf_size: int
+    # Adaptive-rank builds only; None / () = fixed rank.  Columns ≥ rank of a
+    # node's u_leaf/transfer block are exactly zero, as are the b_mats rows
+    # and columns of its dead skeletons; shapes stay at the rank cap.
+    leaf_ranks: torch.Tensor | None = None          # (n_leaf,) int32
+    level_ranks: tuple[torch.Tensor, ...] = ()      # per k=1..K-1: (n_k,) int32
 
     @property
     def n(self) -> int:
@@ -45,16 +63,36 @@ class HSSMatrix:
 
     @property
     def ranks(self) -> list[int]:
-        """Per-level stored ranks, k = 0..K-1."""
+        """Per-level stored rank caps (array column counts), k = 0..K-1."""
         return [self.u_leaf.shape[-1]] + [t.shape[-1] for t in self.transfers]
 
+    @property
+    def adaptive(self) -> bool:
+        return self.leaf_ranks is not None
+
+    def observed_ranks(self) -> list[int]:
+        """Per-level max numerical rank over the level's nodes (``ranks`` for
+        a fixed-rank build).  One host transfer for all levels."""
+        if not self.adaptive:
+            return self.ranks
+        maxima = torch.stack([r.max() for r in (self.leaf_ranks, *self.level_ranks)])
+        return [int(r) for r in maxima.tolist()]
+
     def stored_rank_sum(self) -> int:
-        """Σ_levels n_k · r_k: the paper's O(N r) storage in skeleton slots."""
+        """Σ_levels n_k · (stored rank cap): the paper's O(N r) storage in
+        skeleton slots — decreases under ``shrink_to_fit``."""
         return sum(r * (self.n_leaves >> k) for k, r in enumerate(self.ranks))
 
-    def rank_masks(self) -> None:
-        """Skeleton-liveness masks exist only for adaptive-rank builds (queue 6)."""
-        return None
+    def rank_masks(self) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]] | None:
+        """(leaf_mask (n_leaf, r0), level_masks[k-1] (n_k, r_k)), 1.0 on live
+        skeleton slots and 0.0 on truncated ones; None for fixed rank."""
+        if not self.adaptive:
+            return None
+        dtype = self.u_leaf.dtype
+        leaf = rank_mask(self.leaf_ranks, self.u_leaf.shape[-1], dtype)
+        lvls = tuple(rank_mask(r, t.shape[-1], dtype)
+                     for r, t in zip(self.level_ranks, self.transfers))
+        return leaf, lvls
 
     def matvec(self, v: torch.Tensor) -> torch.Tensor:
         """K̃ @ v in O(N r) — single-RHS view of ``matmat``."""
@@ -117,7 +155,53 @@ class HSSMatrix:
         return out
 
     def memory_bytes(self) -> int:
-        """Storage of the representation (the paper's 'Memory [MB]' column)."""
+        """Storage of the representation (the paper's 'Memory [MB]' column),
+        rank vectors included."""
         arrays = (self.d_leaf, self.u_leaf, self.skel_leaf,
                   *self.transfers, *self.skels, *self.b_mats)
+        if self.adaptive:
+            arrays += (self.leaf_ranks, *self.level_ranks)
         return sum(a.numel() * a.element_size() for a in arrays)
+
+
+def shrink_to_fit(hss: HSSMatrix, multiple: int = 1) -> HSSMatrix:
+    """Slice every level's stacked arrays down to the level's max observed rank.
+
+    Exact, not approximate: every sliced-away slot is structurally zero
+    (dead u/transfer columns, dead b_mats rows and columns).  ``multiple``
+    rounds each new cap up.  The slices are copied, so the full-cap arrays
+    can be freed.  Fixed-rank builds come back unchanged.
+    """
+    if not hss.adaptive:
+        return hss
+    caps = hss.ranks
+    new_caps = [min(cap, max(1, -(-obs // multiple) * multiple))
+                for cap, obs in zip(caps, hss.observed_ranks())]
+    if new_caps == caps:
+        return hss
+    transfers, skels, b_mats = [], [], []
+    for k in range(1, hss.levels + 1):
+        rc = new_caps[k - 1]                     # child-level cap
+        b_mats.append(hss.b_mats[k - 1][:, :rc, :rc].contiguous())
+        if k == hss.levels:
+            break
+        rk = new_caps[k]
+        t = hss.transfers[k - 1]
+        n_k, two_rc_old = t.shape[0], t.shape[1]
+        t = t.reshape(n_k, 2, two_rc_old // 2, t.shape[2])[:, :, :rc, :rk]
+        transfers.append(t.reshape(n_k, 2 * rc, rk))
+        skels.append(hss.skels[k - 1][:, :rk].contiguous())
+    r0 = new_caps[0]
+    return dataclasses.replace(
+        hss, u_leaf=hss.u_leaf[:, :, :r0].contiguous(),
+        skel_leaf=hss.skel_leaf[:, :r0].contiguous(),
+        transfers=tuple(transfers), skels=tuple(skels), b_mats=tuple(b_mats))
+
+
+def shrink_report(hss: HSSMatrix) -> tuple[HSSMatrix, dict]:
+    """``shrink_to_fit`` plus the rank fields of ``FitReport``
+    (ranks_pre/ranks_post/rank_sum_pre/rank_sum_post)."""
+    info = dict(ranks_pre=tuple(hss.ranks), rank_sum_pre=hss.stored_rank_sum())
+    hss = shrink_to_fit(hss)
+    info.update(ranks_post=tuple(hss.ranks), rank_sum_post=hss.stored_rank_sum())
+    return hss, info

@@ -5,8 +5,9 @@ M (s, n) and an interpolation matrix T (k, n) with  M ≈ M[:, J] @ T  and
 T[:, J] = I.  Every function takes a leading batch of matrices (…, s, n)
 where the JAX package vmapped over nodes; a plain (s, n) matrix works too.
 
-Fixed-rank mode only; the adaptive tolerance-driven variant is ROADMAP
-queue 1 item 6.
+``interp_decomp`` is the fixed-rank ID; ``interp_decomp_ranked`` detects
+each matrix's numerical rank from the pivoted-QR diagonal decay against a
+tolerance (the adaptive-rank build).
 """
 from __future__ import annotations
 
@@ -46,52 +47,85 @@ def cpqr_select(m_mat: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor
             qs.reshape(*batch, s, k))
 
 
-def finish_interp(piv: torch.Tensor, r_full: torch.Tensor, rtol: float
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
+def finish_interp(piv: torch.Tensor, r_full: torch.Tensor, rtol: float,
+                  keep_identity: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Truncation + triangular solve from (piv, R = QᵀM): returns (T, rank).
 
     piv (…, k), r_full (…, k, n).  R_J = R[:, J] is upper triangular in pivot
-    order, so T = R_J⁻¹ R.  Directions whose |R_J[i, i]| falls below
-    ``rtol · max|diag|`` get a unit diagonal and a zeroed row, which keeps
-    the solve finite on rank-deficient (e.g. padding) blocks; T[:, J] = I on
-    all k skeleton columns afterwards — the reference's fixed-rank
-    ``keep_identity=True`` mode.
+    order, so T = R_J⁻¹ R.  The greedy pivoting makes |R_J[i, i]|
+    non-increasing, so its decay against ``rtol · max|diag|`` reveals the
+    numerical rank.  Truncated directions get a unit diagonal and a zeroed
+    row, which keeps the solve exact and finite on rank-deficient blocks.
+
+    ``keep_identity=True`` (fixed rank) truncates direction by direction and
+    sets T[:, J] = I on all k skeleton columns.  ``keep_identity=False``
+    (adaptive) keeps the longest prefix of directions above the tolerance
+    (``rank``), sets the identity on the live skeleton columns only — a
+    truncated pivot keeps its interpolation weights over the live skeletons
+    — and zeroes every row ≥ rank of T, so those columns of the basis can be
+    masked and later sliced away without changing any live value.
     """
     *batch, k, n = r_full.shape
     r2 = r_full.reshape(-1, k, n)
     p2 = piv.reshape(-1, k).long()
     nb = r2.shape[0]
-    r_skel = torch.triu(torch.gather(r2, 2, p2[:, None, :].expand(nb, k, k)))
+    piv_cols = p2[:, None, :].expand(nb, k, k)
+    r_skel = torch.triu(torch.gather(r2, 2, piv_cols))
     diag = torch.diagonal(r_skel, dim1=1, dim2=2)
     tol = rtol * torch.clamp(diag.abs().amax(1, keepdim=True), min=1e-30)
-    keep = diag.abs() > tol
+    above = diag.abs() > tol
+    # Prefix rank (adaptive): everything after the first below-tolerance
+    # direction is dead, so the live directions are a leading block.
+    keep = above if keep_identity else torch.cumsum(~above, dim=1) == 0
     r_safe = (torch.where(keep[:, :, None], r_skel, 0.0)
               + torch.diag_embed(torch.where(keep, 0.0, 1.0).to(r2.dtype)))
     rhs = torch.where(keep[:, :, None], r2, 0.0)
     t_full = torch.linalg.solve_triangular(r_safe, rhs, upper=True)
     eye = torch.eye(k, dtype=r2.dtype, device=r2.device).expand(nb, k, k)
-    t_full = t_full.scatter(2, p2[:, None, :].expand(nb, k, k), eye)
+    if keep_identity:
+        t_full = t_full.scatter(2, piv_cols, eye)
+    else:
+        at_piv = torch.gather(t_full, 2, piv_cols)
+        t_full = t_full.scatter(2, piv_cols, torch.where(keep[:, None, :], eye, at_piv))
+        t_full = t_full * keep[:, :, None].to(r2.dtype)
     rank = keep.sum(1).to(torch.int32)
     return t_full.reshape(*batch, k, n), rank.reshape(batch)
 
 
-def _interp_core(m_mat: torch.Tensor, k: int, rtol: float
+def _interp_core(m_mat: torch.Tensor, k: int, rtol: float, keep_identity: bool
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pivoted QR, then ``finish_interp``.  Returns (piv, T, rank)."""
     piv, qs = cpqr_select(m_mat, k)
     r_full = qs.transpose(-1, -2) @ m_mat                     # (…, k, n)
-    t_full, rank = finish_interp(piv, r_full, rtol)
+    t_full, rank = finish_interp(piv, r_full, rtol, keep_identity)
     return piv, t_full, rank
 
 
 def interp_decomp(m_mat: torch.Tensor, k: int, rtol: float = 1e-5
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Column ID:  M ≈ M[:, J] @ T  with  T[:, J] = I_k (fixed rank)."""
-    piv, t_full, _ = _interp_core(m_mat, k, rtol)
+    piv, t_full, _ = _interp_core(m_mat, k, rtol, keep_identity=True)
     return piv, t_full
+
+
+def interp_decomp_ranked(m_mat: torch.Tensor, k: int, rtol: float = 1e-5
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Adaptive column ID: (piv, T, rank) with rows ≥ rank of T exactly 0.
+
+    k stays the cap, so shapes never depend on the data; T[:, J] = I on the
+    first ``rank`` skeleton columns.
+    """
+    return _interp_core(m_mat, k, rtol, keep_identity=False)
 
 
 def row_interp_decomp(m_mat: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Row ID:  M ≈ P @ M[J, :]  with P (rows, k), P[J, :] = I_k."""
     piv, t = interp_decomp(m_mat.transpose(-1, -2), k)
     return piv, t.transpose(-1, -2)
+
+
+def row_interp_decomp_ranked(m_mat: torch.Tensor, k: int, rtol: float = 1e-5
+                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Adaptive row ID: M ≈ P @ M[J, :] with P's columns ≥ rank exactly 0."""
+    piv, t, rank = interp_decomp_ranked(m_mat.transpose(-1, -2), k, rtol)
+    return piv, t.transpose(-1, -2), rank

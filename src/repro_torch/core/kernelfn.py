@@ -1,11 +1,13 @@
 """Kernel functions evaluated block-wise (counterpart of ``repro.core.kernelfn``).
 
 The Gaussian kernel K(x, y) = exp(-||x-y||^2 / (2 h^2)) is the paper's
-choice.  Block evaluation is the compute hot spot of HSS compression
-(leaf blocks, couplings) and of prediction (test × support blocks); every
-block goes through ``kernels.gaussian.ops.gaussian_block`` — the CUDA
-kernel for CUDA tensors, its plain version for CPU tensors.  There is no
-backend switch: the device of the tensors decides.
+choice; the laplacian kernel exp(-||x-y||_1 / h) is the optional variant.
+Block evaluation is the compute hot spot of HSS compression (leaf blocks,
+couplings) and of prediction (test × support blocks); every block goes
+through ``kernels.gaussian.ops.gaussian_block`` (K1) or
+``kernels.compress.laplacian.laplacian_block`` (K4) — the CUDA kernel for
+CUDA tensors, its plain version for CPU tensors.  There is no backend
+switch: the device of the tensors decides.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels.compress import laplacian as lops
 from repro_torch.kernels.gaussian import ops as gops
 
 # The row count of each test×support kernel block kept live during scoring.
@@ -27,10 +30,7 @@ class KernelSpec:
     h: float = 1.0
 
     def __post_init__(self):
-        if self.name == "laplacian":
-            raise NotImplementedError(
-                "the laplacian kernel is ROADMAP queue 1 item 8 (kernel K4)")
-        if self.name != "gaussian":
+        if self.name not in ("gaussian", "laplacian"):
             raise ValueError(f"unknown kernel {self.name!r}")
 
     def with_h(self, h: float) -> "KernelSpec":
@@ -45,8 +45,20 @@ def gaussian_block(xa: torch.Tensor, xb: torch.Tensor, h: float) -> torch.Tensor
     return gops.gaussian_block(xa, xb, h)
 
 
+def laplacian_block(xa: torch.Tensor, xb: torch.Tensor, h: float) -> torch.Tensor:
+    """exp(-||xa - xb||_1 / h) for (ma, f) x (mb, f) -> (ma, mb), or a batch.
+
+    Follows the reference's Pallas kernel, not ``laplacian_block_xla``: the
+    L1 distance is summed in f32 whatever the input type, multiplied by
+    f32(1/h), and the block comes back in the input type.
+    """
+    return lops.laplacian_block(xa, xb, h)
+
+
 def kernel_block(spec: KernelSpec, xa: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
     """Evaluate a (len(xa), len(xb)) kernel block (or a batch) under ``spec``."""
+    if spec.name == "laplacian":
+        return laplacian_block(xa, xb, spec.h)
     return gaussian_block(xa, xb, spec.h)
 
 

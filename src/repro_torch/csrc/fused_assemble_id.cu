@@ -1,8 +1,11 @@
 // Fused assemble + greedy column-pivoted QR for the row IDs of one tree level.
 //
 // Replaces: repro/kernels/compress/kernel.py::fused_assemble_id_pallas
-// (gaussian branch).  Per node b (one thread block each):
+// (both branches).  Per node b (one thread block each):
 //   A^T = K(xp_b, xc_b) * cmask_b         (s x m: proxies x candidates)
+//     gaussian:  exp(-max(|xp|^2 + |xc|^2 - 2 xp.xc, 0) / 2h^2)
+//     laplacian: exp(-|xp - xc|_1 / h), the L1 sum in f32 in feature order
+//                and a true division by h, as _assemble_laplacian has it
 //   k greedy CPQR steps on A^T, exactly as repro/core/idqr.py::cpqr_select:
 //     p = argmax of the available column norms (ties -> lowest index),
 //     q = resid[:, p] / sqrt(max(|resid[:, p]|^2, 1e-30)),
@@ -25,8 +28,14 @@
 // step's norm are one pass over the column with no synchronisation.  Q is
 // stored direction-major (Q[i*s + r]) so both the per-direction dot
 // products and the per-row update read shared memory without bank
-// conflicts.  The launcher computes the shared-memory need, and returns
-// kSmemTooLarge without launching when the card cannot give it.
+// conflicts.  The launcher computes the shared-memory need.  Where Q does
+// not fit beside the residual (the accurate preset's leaf: m=256, s=192,
+// k=64 needs 249,952 B with Q, 200,800 B without), Q lives in a per-node
+// global scratch that the caller allocates: only the nodes in flight (one
+// per SM) touch it, ~6 MB, so it stays in the 50 MB L2.  After the k steps
+// the residual is dead and Q is copied into its place for R.  Shapes that
+// fit with Q keep it in shared memory (the QG = false instantiation, the
+// code of the gaussian-only kernel).  kSmemTooLarge: no launch.
 #include <cuda_runtime.h>
 #include <cfloat>
 #include <climits>
@@ -38,10 +47,13 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int KCHUNK = 32;          // R rows accumulated in registers per pass
 constexpr int kSmemTooLarge = -2;
+constexpr int kNeedScratch = -3;
 
-size_t smem_bytes(int m, int s, int k) {
+enum Kind { kGaussian = 0, kLaplacian = 1 };
+
+size_t smem_bytes(int m, int s, int k, bool q_global) {
   const size_t floats = (size_t)s * m      // residual
-                        + (size_t)s * k    // Q
+                        + (q_global ? 0 : (size_t)s * k)    // Q
                         + 2 * (size_t)m    // column norms, candidate point norms
                         + 2 * (size_t)s    // q, proxy point norms
                         + (size_t)k        // Q^T q
@@ -49,13 +61,22 @@ size_t smem_bytes(int m, int s, int k) {
   return floats * 4 + WARPS * 4 /* argmax index scratch */ + (size_t)m /* avail */;
 }
 
+// One entry of A^T.  param is -1/2h^2 (gaussian) or h (laplacian); the
+// point norms nc, np are read by the gaussian branch only.
+template <int KIND>
 __device__ __forceinline__ float entry(const float* __restrict__ xc_j,
                                        const float* __restrict__ xp_r, int f,
-                                       float nc, float np, float scale) {
-  float cross = 0.f;
-  for (int c = 0; c < f; ++c) cross = fmaf(__ldg(xc_j + c), __ldg(xp_r + c), cross);
-  const float sq = fmaxf((nc + np) - 2.f * cross, 0.f);
-  return expf(sq * scale);
+                                       float nc, float np, float param) {
+  if constexpr (KIND == kLaplacian) {
+    float d1 = 0.f;
+    for (int c = 0; c < f; ++c) d1 += fabsf(__ldg(xc_j + c) - __ldg(xp_r + c));
+    return expf(-d1 / param);
+  } else {
+    float cross = 0.f;
+    for (int c = 0; c < f; ++c) cross = fmaf(__ldg(xc_j + c), __ldg(xp_r + c), cross);
+    const float sq = fmaxf((nc + np) - 2.f * cross, 0.f);
+    return expf(sq * param);
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -77,15 +98,17 @@ __device__ float block_sum(float v, float* scratch) {
   return total;
 }
 
+template <int KIND, bool QG>
 __global__ void __launch_bounds__(THREADS)
 fused_assemble_id_kernel(const float* __restrict__ xc, const float* __restrict__ xp,
                          const float* __restrict__ cmask, int* __restrict__ piv_out,
-                         float* __restrict__ r_out, int m, int s, int f, int k,
-                         float scale) {
+                         float* __restrict__ r_out, float* __restrict__ q_scratch,
+                         int m, int s, int f, int k, float scale) {
   extern __shared__ float smem[];
   float* resid = smem;                    // [r * m + j]
-  float* qs = resid + (size_t)s * m;      // [i * s + r]
-  float* norms = qs + (size_t)s * k;      // [j]
+  // Q, [i * s + r]: in shared memory, or in this node's global scratch.
+  float* qs = QG ? q_scratch + (size_t)blockIdx.x * s * k : resid + (size_t)s * m;
+  float* norms = resid + (size_t)s * m + (QG ? 0 : (size_t)s * k);   // [j]
   float* n_c = norms + m;                 // [j]
   float* q = n_c + m;                     // [r]
   float* n_p = q + s;                     // [r]
@@ -102,17 +125,24 @@ fused_assemble_id_kernel(const float* __restrict__ xc, const float* __restrict__
   const float* cm_b = cmask + b * m;
 
   for (int j = tid; j < m; j += THREADS) {
-    float acc = 0.f;
-    for (int c = 0; c < f; ++c) { const float v = xc_b[(size_t)j * f + c]; acc += v * v; }
-    n_c[j] = acc;
+    if constexpr (KIND == kGaussian) {
+      float acc = 0.f;
+      for (int c = 0; c < f; ++c) { const float v = xc_b[(size_t)j * f + c]; acc += v * v; }
+      n_c[j] = acc;
+    }
     avail[j] = 1;
   }
-  for (int r = tid; r < s; r += THREADS) {
-    float acc = 0.f;
-    for (int c = 0; c < f; ++c) { const float v = xp_b[(size_t)r * f + c]; acc += v * v; }
-    n_p[r] = acc;
+  if constexpr (KIND == kGaussian) {
+    for (int r = tid; r < s; r += THREADS) {
+      float acc = 0.f;
+      for (int c = 0; c < f; ++c) { const float v = xp_b[(size_t)r * f + c]; acc += v * v; }
+      n_p[r] = acc;
+    }
   }
-  for (int idx = tid; idx < s * k; idx += THREADS) qs[idx] = 0.f;
+  // Only Q's first i directions are read at step i, so the global scratch
+  // needs no clearing.
+  if constexpr (!QG)
+    for (int idx = tid; idx < s * k; idx += THREADS) qs[idx] = 0.f;
   __syncthreads();
 
   // Assemble A^T (masked by cmask) and its column norms.
@@ -120,7 +150,7 @@ fused_assemble_id_kernel(const float* __restrict__ xc, const float* __restrict__
     const float cm = cm_b[j];
     float nrm = 0.f;
     for (int r = 0; r < s; ++r) {
-      const float a = entry(xc_b + (size_t)j * f, xp_b + (size_t)r * f, f, n_c[j], n_p[r], scale) * cm;
+      const float a = entry<KIND>(xc_b + (size_t)j * f, xp_b + (size_t)r * f, f, n_c[j], n_p[r], scale) * cm;
       resid[(size_t)r * m + j] = a;
       nrm += a * a;
     }
@@ -204,7 +234,14 @@ fused_assemble_id_kernel(const float* __restrict__ xc, const float* __restrict__
     __syncthreads();
   }
 
-  // R = Q^T A^T with A^T evaluated again from the points.
+  // R = Q^T A^T with A^T evaluated again from the points.  The residual is
+  // dead now: a global Q moves into its place first (k <= m).
+  const float* qr_s = qs;
+  if constexpr (QG) {
+    for (int idx = tid; idx < s * k; idx += THREADS) resid[idx] = qs[idx];
+    __syncthreads();
+    qr_s = resid;
+  }
   for (int j = tid; j < m; j += THREADS) {
     const float cm = cm_b[j];
     for (int i0 = 0; i0 < k; i0 += KCHUNK) {
@@ -212,10 +249,10 @@ fused_assemble_id_kernel(const float* __restrict__ xc, const float* __restrict__
 #pragma unroll
       for (int ii = 0; ii < KCHUNK; ++ii) acc[ii] = 0.f;
       for (int r = 0; r < s; ++r) {
-        const float a = entry(xc_b + (size_t)j * f, xp_b + (size_t)r * f, f, n_c[j], n_p[r], scale) * cm;
+        const float a = entry<KIND>(xc_b + (size_t)j * f, xp_b + (size_t)r * f, f, n_c[j], n_p[r], scale) * cm;
 #pragma unroll
         for (int ii = 0; ii < KCHUNK; ++ii)
-          if (i0 + ii < k) acc[ii] = fmaf(qs[(size_t)(i0 + ii) * s + r], a, acc[ii]);
+          if (i0 + ii < k) acc[ii] = fmaf(qr_s[(size_t)(i0 + ii) * s + r], a, acc[ii]);
       }
 #pragma unroll
       for (int ii = 0; ii < KCHUNK; ++ii)
@@ -224,29 +261,68 @@ fused_assemble_id_kernel(const float* __restrict__ xc, const float* __restrict__
   }
 }
 
-}  // namespace
-
-extern "C" long long fused_assemble_id_smem_bytes(int m, int s, int k) {
-  return (long long)smem_bytes(m, s, k);
+template <int KIND, bool QG>
+int launch_one(const void* xc, const void* xp, const void* cmask, void* piv, void* r,
+               void* q_scratch, int batch, int m, int s, int f, int k, float param,
+               size_t bytes, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_assemble_id_kernel<KIND, QG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  fused_assemble_id_kernel<KIND, QG><<<batch, THREADS, bytes, stream>>>(
+      (const float*)xc, (const float*)xp, (const float*)cmask, (int*)piv, (float*)r,
+      (float*)q_scratch, m, s, f, k, param);
+  return (int)cudaGetLastError();
 }
 
-// Returns 0 on success, kSmemTooLarge (without launching) when the node
-// needs more shared memory than `device` gives one block, else the
-// cudaError_t of the attribute call or the launch.
-extern "C" int fused_assemble_id_gaussian(const void* xc, const void* xp,
-                                          const void* cmask, void* piv, void* r,
-                                          int batch, int m, int s, int f, int k,
-                                          float scale, int device, void* stream) {
-  const size_t bytes = smem_bytes(m, s, k);
+template <int KIND>
+int launch_kind(const void* xc, const void* xp, const void* cmask, void* piv, void* r,
+                void* q_scratch, int batch, int m, int s, int f, int k, float param,
+                int where, cudaStream_t stream) {
+  if (where == 0)
+    return launch_one<KIND, false>(xc, xp, cmask, piv, r, nullptr, batch, m, s, f, k,
+                                   param, smem_bytes(m, s, k, false), stream);
+  return launch_one<KIND, true>(xc, xp, cmask, piv, r, q_scratch, batch, m, s, f, k,
+                                param, smem_bytes(m, s, k, true), stream);
+}
+
+}  // namespace
+
+extern "C" long long fused_assemble_id_smem_bytes(int m, int s, int k, int q_global) {
+  return (long long)smem_bytes(m, s, k, q_global != 0);
+}
+
+// *where = 0 (Q in shared memory), 1 (Q in the global scratch) or
+// kSmemTooLarge.  Returns the cudaError_t of the attribute query.
+extern "C" int fused_assemble_id_plan(int m, int s, int k, int device, int* where) {
   int optin = 0;
-  cudaError_t err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
-  if (bytes > (size_t)optin) return kSmemTooLarge;
-  err = cudaFuncSetAttribute(fused_assemble_id_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  fused_assemble_id_kernel<<<batch, THREADS, bytes, (cudaStream_t)stream>>>(
-      (const float*)xc, (const float*)xp, (const float*)cmask, (int*)piv, (float*)r,
-      m, s, f, k, scale);
-  return (int)cudaGetLastError();
+  if (smem_bytes(m, s, k, false) <= (size_t)optin) *where = 0;
+  else if (smem_bytes(m, s, k, true) <= (size_t)optin) *where = 1;
+  else *where = kSmemTooLarge;
+  return (int)cudaSuccess;
+}
+
+// kind: 0 gaussian (param = -1/2h^2), 1 laplacian (param = h).  q_scratch
+// holds batch * k * s floats, or is null when Q fits in shared memory.
+// Returns 0 on success, kSmemTooLarge (without launching) when the node
+// does not fit, kNeedScratch when it fits only with a scratch that was not
+// given, else the cudaError_t of the attribute call or the launch.
+extern "C" int fused_assemble_id_launch(int kind, const void* xc, const void* xp,
+                                        const void* cmask, void* piv, void* r,
+                                        void* q_scratch, int batch, int m, int s,
+                                        int f, int k, float param, int device,
+                                        void* stream) {
+  int where = 0;
+  const int err = fused_assemble_id_plan(m, s, k, device, &where);
+  if (err != 0) return err;
+  if (where == kSmemTooLarge) return kSmemTooLarge;
+  if (where == 1 && q_scratch == nullptr) return kNeedScratch;
+  if (kind == kLaplacian)
+    return launch_kind<kLaplacian>(xc, xp, cmask, piv, r, q_scratch, batch, m, s, f, k,
+                                   param, where, (cudaStream_t)stream);
+  return launch_kind<kGaussian>(xc, xp, cmask, piv, r, q_scratch, batch, m, s, f, k,
+                                param, where, (cudaStream_t)stream);
 }

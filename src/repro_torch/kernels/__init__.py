@@ -9,6 +9,10 @@ Each subpackage keeps the triple of ``repro.kernels``:
 
 Kernels:
   gaussian     — batched Gaussian kernel block (K1)
-  compress     — fused assemble + pivoted-QR row ID of one tree level (K2)
+  compress     — fused assemble + pivoted-QR row ID of one tree level (K2),
+                 both kernels; ``compress/laplacian.py`` holds the batched
+                 laplacian block (K4) with its launcher and wrapper, and
+                 ``compress/verify.py`` the comparison of K2's row IDs with
+                 the plain version's where rounding decides a pivot
   admm_update  — fused ADMM z-projection + multiplier update (K3)
 """

@@ -7,7 +7,8 @@ interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <name>.cu
 
 The libraries go to ``build/kernels/`` at the repository root (git-ignored),
-named by a hash of the source and flags, so an edited source rebuilds and an
+named by a hash of the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source rebuilds and an
 unchanged one is reused.  ``build_all`` starts one nvcc per source at once.
 Nothing builds at import: the first ``library(name)`` call does.
 
@@ -27,7 +28,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("gaussian_block", "fused_assemble_id", "zmu_update")
+KERNELS = ("gaussian_block", "fused_assemble_id", "zmu_update", "laplacian_block")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,7 +52,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # The shared headers count too: an edit of one rebuilds every source.
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 

@@ -1,1 +1,2 @@
-"""K2: fused assemble + pivoted-QR row ID, gaussian (CUDA twin of repro.kernels.compress)."""
+"""K2: fused assemble + pivoted-QR row ID, gaussian and laplacian, and K4: the
+batched laplacian block (CUDA twins of repro.kernels.compress)."""

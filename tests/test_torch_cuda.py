@@ -11,9 +11,10 @@ Tolerances are those of ``chip_smoke.py``, with their reasons there.
 import pytest
 import torch
 
+from repro_torch.core import idqr
 from repro_torch.kernels import _build
 from repro_torch.kernels.admm_update import ops as aops, ref as aref
-from repro_torch.kernels.compress import kernel as ckern, ref as cref
+from repro_torch.kernels.compress import kernel as ckern, laplacian as lops, ref as cref
 from repro_torch.kernels.gaussian import ops as gops, ref as gref
 
 pytestmark = pytest.mark.cuda
@@ -54,6 +55,63 @@ def test_fused_assemble_id_kernel_matches_plain(dev, b, m, s, f, k):
     piv_ref, r_ref = cref.fused_assemble_id_ref(xc, xp, cmask, k, 1.0)
     assert torch.equal(piv, piv_ref)
     assert (r - r_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("b,m,s,f,k", [(4, 64, 48, 8, 12), (3, 100, 37, 3, 8)])
+def test_fused_assemble_id_laplacian_with_dead_slots(dev, b, m, s, f, k):
+    """K2's laplacian branch with dead candidates on two nodes."""
+    xc, xp = _randn((b, m, f), dev, 6), _randn((b, s, f), dev, 7)
+    cmask = torch.ones((b, m), device=dev)
+    cmask[0, m // 3:] = 0.0
+    cmask[-1, ::4] = 0.0
+    piv, r = ckern.fused_assemble_id_cuda(xc, xp, cmask, k, 2.0, "laplacian")
+    piv_ref, r_ref = cref.fused_assemble_id_ref(xc, xp, cmask, k, 2.0, "laplacian")
+    assert torch.equal(piv, piv_ref)
+    assert (r - r_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("f", [2, 8])
+def test_fused_assemble_id_at_the_accurate_leaf(dev, f):
+    """The accurate preset's leaf (m=256, s=192, k=64), whose Q basis goes
+    to global memory, as the adaptive build uses it: ranks at rtol 1e-4
+    equal, pivots equal on the live slots (slot < rank) and R equal on the
+    live rows.  With two features, as the accurate path's circles have, the
+    rank of these blocks is ~45-53 of 64: past it |R_ii| is at f32 noise and
+    the pivots are chosen by rounding; they are dead slots, which the build
+    zeroes.  With eight features every slot is live."""
+    b, m, s, k, rtol = 6, 256, 192, 64, 1e-4
+    assert ckern.plan(m, s, k, torch.cuda.current_device()) == ckern.Q_IN_GLOBAL
+    assert ckern.smem_bytes(m, s, k, q_global=True) == 200_800
+    xc, xp = _randn((b, m, f), dev, 8), _randn((b, s, f), dev, 9)
+    cmask = torch.ones((b, m), device=dev)
+    piv, r = ckern.fused_assemble_id_cuda(xc, xp, cmask, k, 1.0)
+    piv_ref, r_ref = cref.fused_assemble_id_ref(xc, xp, cmask, k, 1.0)
+    _, rank = idqr.finish_interp(piv, r, rtol, keep_identity=False)
+    _, rank_ref = idqr.finish_interp(piv_ref, r_ref, rtol, keep_identity=False)
+    assert torch.equal(rank, rank_ref)
+    assert int(rank.min()) >= (16 if f == 2 else k)
+    live = torch.arange(k, device=dev)[None, :] < rank[:, None]
+    assert torch.equal(piv[live], piv_ref[live])
+    assert (r - r_ref)[live].abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("b,ma,mb,f,dtype", [
+    (1, 3, 2, 2, torch.float32), (3, 255, 129, 5, torch.float32),
+    (2, 300, 7, 11, torch.float32), (2, 96, 40, 8, torch.bfloat16),
+    (70_000, 5, 3, 8, torch.float32),     # batch above grid.z's 65535
+])
+def test_laplacian_block_kernel_matches_plain(dev, b, ma, mb, f, dtype):
+    """K4 against its plain version: the same L1 sums in the same order, so
+    only exp's last bits differ (bf16: one rounding step of K, 2^-8)."""
+    xa = _randn((b, ma, f), dev, 10).to(dtype)
+    xb = _randn((b, mb, f), dev, 11).to(dtype)
+    before = _build.launch_counts["laplacian_block"]
+    out = lops.laplacian_block(xa, xb, 1.3)
+    assert _build.launch_counts["laplacian_block"] == before + (1 if b <= 65535 else 2)
+    assert out.shape == (b, ma, mb) and out.dtype == dtype
+    tol = 2e-5 if dtype == torch.float32 else 2 ** -8
+    err = (out.float() - cref.laplacian_block_ref(xa, xb, 1.3).float()).abs().max().item()
+    assert err <= tol
 
 
 def test_zmu_update_kernel_matches_plain(dev):

@@ -15,13 +15,16 @@ import pytest
 import torch
 
 from repro.core import idqr as jidqr
-from repro.core.kernelfn import gaussian_block_xla
+from repro.core.kernelfn import gaussian_block_xla, laplacian_block_xla
 from repro.kernels.admm_update import ops as jaops
+from repro.kernels.compress import laplacian as jlops
 from repro.kernels.compress import ops as jcops
 from repro.kernels.gaussian import ops as jgops
 from repro_torch.kernels import _build
 from repro_torch.kernels.admm_update import kernel as akern, ops as aops
-from repro_torch.kernels.compress import kernel as ckern, ops as cops
+from repro_torch.core import kernelfn as tkfn
+from repro_torch.kernels.compress import kernel as ckern, laplacian as lops, ops as cops
+from repro_torch.kernels.compress import ref as cref, verify
 from repro_torch.kernels.gaussian import kernel as gkern, ops as gops
 
 torch.set_float32_matmul_precision("highest")
@@ -129,7 +132,129 @@ def test_assemble_id_cmask_matches_pallas():
     np.testing.assert_allclose(pmat.numpy(), np.asarray(jp), rtol=0, atol=1e-5)
 
 
+# ---------------------------------------------------------------- K4 ---- #
+@pytest.mark.parametrize("ma,mb,f", ODD_SHAPES)
+@pytest.mark.parametrize("h", [0.7, 3.0])
+def test_laplacian_matches_xla_and_pallas_odd_shapes(ma, mb, f, h):
+    """The tolerance of the JAX package's own laplacian parity test: f32
+    L1 sums in another order (16-wide chunks in the XLA twin), and 1/h
+    multiplied against divided by (an ulp of the exponent)."""
+    a, b = _pair(ma, mb, f, 7 * ma + mb)
+    out = lops.laplacian_block(torch.as_tensor(a), torch.as_tensor(b), h).numpy()
+    xla = np.asarray(laplacian_block_xla(jnp.asarray(a), jnp.asarray(b), h))
+    pallas = np.asarray(jlops.laplacian_block(jnp.asarray(a), jnp.asarray(b), h,
+                                              interpret=True))
+    assert out.shape == (ma, mb) and out.dtype == np.float32
+    np.testing.assert_allclose(out, xla, rtol=2e-5, atol=2e-6)
+    np.testing.assert_allclose(out, pallas, rtol=2e-5, atol=2e-6)
+
+
+def test_laplacian_bf16_accumulates_in_f32_as_the_pallas_kernel():
+    """bf16 in, bf16 out, against the reference's Pallas kernel (which
+    upcasts to f32), not its XLA twin (which sums bf16 inputs in bf16).
+    The L1 sums agree to f32 rounding, so the two bf16 outputs differ by at
+    most one bf16 rounding step of K in (0, 1]: 2^-8."""
+    a, b = _pair(96, 40, 8, 3)
+    a16 = torch.as_tensor(a).to(torch.bfloat16)
+    b16 = torch.as_tensor(b).to(torch.bfloat16)
+    out = lops.laplacian_block(a16, b16, 2.0)
+    assert out.dtype == torch.bfloat16
+    pallas = jlops.laplacian_block(jnp.asarray(a, jnp.bfloat16),
+                                   jnp.asarray(b, jnp.bfloat16), 2.0, interpret=True)
+    assert pallas.dtype == jnp.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(pallas, np.float32),
+                               rtol=0, atol=2 ** -8)
+
+
+def test_laplacian_batched_and_kernel_block_dispatch():
+    """The batched (B, ·, f) call is one block per batch entry, and
+    kernel_block sends a laplacian spec to it."""
+    rng = np.random.default_rng(6)
+    xa = torch.as_tensor(rng.normal(size=(3, 17, 4)).astype(np.float32))
+    xb = torch.as_tensor(rng.normal(size=(3, 9, 4)).astype(np.float32))
+    out = tkfn.kernel_block(tkfn.KernelSpec("laplacian", 1.7), xa, xb)
+    for i in range(3):
+        torch.testing.assert_close(out[i], lops.laplacian_block(xa[i], xb[i], 1.7),
+                                   rtol=0, atol=0)
+    gauss = tkfn.kernel_block(tkfn.KernelSpec("gaussian", 1.7), xa, xb)
+    assert not torch.allclose(out, gauss)
+
+
+# ------------------------------------------------- K2, laplacian branch ---- #
+@pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("b,m,s,f,k", [(3, 50, 37, 5, 12), (2, 64, 48, 8, 16)])
+def test_assemble_id_laplacian_matches_pallas(adaptive, b, m, s, f, k):
+    """The plain laplacian branch + finish_interp against the Pallas kernel
+    (interpret), with dead candidates: ranks equal, live pivots (slot <
+    rank; all k at fixed rank) equal, P to 1e-5 of its largest entry.  The
+    pivots past a node's rank are chosen among residual columns at f32
+    noise level, so two implementations may pick different ones there;
+    they carry no skeleton (their P columns are 0)."""
+    rng = np.random.default_rng(b * m + s + k + adaptive)
+    # Adaptive: candidates and proxies in two clusters (spread 0.3) a unit
+    # apart in every feature — the far field, where the laplacian kernel is
+    # nearly separable and the crude tolerance truncates the rank.  Fixed
+    # rank: one spread-1 cloud, where all k directions stand well above the
+    # f32 noise that a near-singular solve would amplify.
+    spread, offset = (0.3, 1.0) if adaptive else (1.0, 0.0)
+    xc = (spread * rng.normal(size=(b, m, f))).astype(np.float32)
+    xp = (spread * rng.normal(size=(b, s, f)) + offset).astype(np.float32)
+    cmask = np.ones((b, m), np.float32)
+    cmask[0, m - m // 3:] = 0.0          # node 0: its last third is dead
+    cmask[-1, ::5] = 0.0                 # last node: scattered dead slots
+    h, rtol = 2.0, 1e-2 if adaptive else 1e-5
+    piv, pmat, ranks = cops.batched_assemble_id(
+        torch.as_tensor(xc), torch.as_tensor(xp), k, h=h, rtol=rtol,
+        kernel_name="laplacian", adaptive=adaptive, cmask=torch.as_tensor(cmask))
+    jpiv, jp, jranks = jcops.batched_assemble_id(
+        jnp.asarray(xc), jnp.asarray(xp), k, kernel_name="laplacian", h=h,
+        rtol=rtol, adaptive=adaptive, cmask=jnp.asarray(cmask), interpret=True)
+    np.testing.assert_array_equal(ranks.numpy(), np.asarray(jranks))
+    live = np.arange(k)[None, :] < ranks.numpy()[:, None]
+    np.testing.assert_array_equal(piv.numpy()[live], np.asarray(jpiv)[live])
+    if adaptive:
+        assert int(ranks.min()) < k        # the tolerance truncates here
+    scale = max(1.0, float(np.abs(np.asarray(jp)).max()))
+    np.testing.assert_allclose(pmat.numpy(), np.asarray(jp), rtol=0, atol=1e-5 * scale)
+    assert not np.isin(piv[0].numpy(), np.arange(m - m // 3, m)).any()
+
+
 # ---------------------------------------------------------------- K3 ---- #
+@pytest.mark.parametrize("kernel_name,h,rtol", [
+    ("gaussian", 1.0, None), ("gaussian", 1.0, 1e-4), ("laplacian", 2.0, 1e-2)])
+def test_compare_row_ids_tells_rounding_ties_from_wrong_pivots(kernel_name, h, rtol):
+    """``verify.compare_row_ids``, which holds K2 against its plain version
+    on the card.  Mirrored data (candidates ±c, proxies ±p) make every
+    candidate tie exactly with its mirror image: the mirrored run (pivots
+    mapped to their mirrors, R's columns with them) differs on every node
+    from the first step, and each difference must read as a tie with an
+    equally good skeleton, and the mirrored run as a greedy pivoted QR.  The
+    plain version under another summation order (proxy rows permuted) must
+    read the same.  A pivot swapped for the weakest candidate must not."""
+    b, m2, s2, f, k = 4, 40, 24, 2, 12
+    rng = np.random.default_rng(5)
+    c = torch.as_tensor(rng.normal(size=(b, m2, f)).astype(np.float32))
+    p = torch.as_tensor(rng.normal(size=(b, s2, f)).astype(np.float32))
+    xc, xp = torch.cat([c, -c], 1), torch.cat([p, -p], 1)
+    cmask = torch.ones(xc.shape[:2])
+    piv, r = cref.fused_assemble_id_ref(xc, xp, cmask, k, h, kernel_name)
+    twin = torch.cat([torch.arange(m2, 2 * m2), torch.arange(m2)])
+    rep = verify.compare_row_ids(xc, xp, cmask, h, kernel_name, rtol,
+                                 twin[piv.long()].to(torch.int32), r[:, :, twin], piv, r)
+    assert rep["mismatches"] == b and rep["untied"] == 0
+    assert rep["off_greedy"] == 0 and rep["worst_ratio"] <= 1 + 1e-6
+    perm = torch.as_tensor(rng.permutation(2 * s2))
+    piv_p, r_p = cref.fused_assemble_id_ref(xc, xp[:, perm].contiguous(), cmask, k, h,
+                                            kernel_name)
+    rep = verify.compare_row_ids(xc, xp, cmask, h, kernel_name, rtol, piv_p, r_p, piv, r)
+    assert rep["untied"] == 0 and rep["off_greedy"] == 0 and rep["r_err"] <= 1e-5
+    wrong = piv.clone()
+    weakest = cref._assemble(xc[1:2], xp[1:2], h, kernel_name)[0].norm(dim=1).argmin()
+    wrong[1, 0] = int(weakest)
+    rep = verify.compare_row_ids(xc, xp, cmask, h, kernel_name, rtol, wrong, r, piv, r)
+    assert rep["mismatches"] == 1 and rep["untied"] == 1 and rep["off_greedy"] == 1
+
+
 @pytest.mark.parametrize("n", [128, 1000, 4097])
 @pytest.mark.parametrize("beta", [1.0, 100.0, 1e4])
 def test_zmu_update_matches_pallas(n, beta):
@@ -151,9 +276,13 @@ def test_zmu_update_matches_pallas(n, beta):
 @pytest.mark.parametrize("launch", [
     lambda t: gkern.gaussian_block_cuda(t[None], t[None], 1.0),
     lambda t: ckern.fused_assemble_id_cuda(t[None], t[None], torch.ones(1, 4), 2, 1.0),
+    lambda t: ckern.fused_assemble_id_cuda(t[None], t[None], torch.ones(1, 4), 2, 1.0,
+                                           "laplacian"),
     lambda t: akern.fused_zmu_update_cuda(t[:, 0].contiguous(), t[:, 0].contiguous(),
                                           t[:, 0].contiguous(), 1.0),
-], ids=["gaussian_block", "fused_assemble_id", "zmu_update"])
+    lambda t: lops.laplacian_block_cuda(t[None], t[None], 1.0),
+], ids=["gaussian_block", "fused_assemble_id", "fused_assemble_id_laplacian",
+        "zmu_update", "laplacian_block"])
 def test_kernel_launchers_refuse_cpu_tensors(launch):
     """A launcher takes CUDA tensors only: on anything else it raises before
     building or launching, and its launch count does not move."""
