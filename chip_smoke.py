@@ -35,7 +35,23 @@ Phases, each printed on its own lines, none of them allowed to fail:
                  scoring block;
   8. K3 path   — admm_svm_batched(use_fused_update=True) on the main path's
                  factorization against the unfused run; K3 launched 10 times;
-  9. summary   — one JSON line {"kernels": [...]}, then the last line
+  9. kernels   — K5 (flash attention) against its plain version at the
+                 zamba2 path's shape (4 x 32 x 1024 x 64 bf16, causal; SDPA
+                 timed beside it), gemma2-9b's local layer (H16/KV8, D256,
+                 window 4096 on S 8192, softcap 50), hubert-xlarge's D80
+                 non-causal and paligemma-3b's MQA D256 prefix-LM; K6 (the SSD
+                 chunk scan) at the path's shape and mamba2-780m's (N 128),
+                 y and the final state.  Kernel, plain and bound ms;
+ 10. lm-small  — zamba2-1.2b at full width, 6 layers, f32: prefill of 256
+                 tokens and 4 teacher-forced decode steps on the card against
+                 the same model on the CPU; the logits agree;
+ 11. lm        — the serving entry point (repro_torch.launch.serve) at
+                 zamba2-1.2b's full width and depth, bf16, batch 4, prompt
+                 1024, 32 generated tokens: prefill runs K5 6 times and K6 38
+                 times, decode neither; then again after a warm-up prefill.
+                 Then [check lm]: every K5 and K6 launch of the path run again
+                 by the plain version on the path's own inputs;
+ 12. summary   — one JSON line {"kernels": [...]}, then the last line
                  {"ok": true, "device": {...}}.
 Every path runs with the launch counts set to 0 just before it, and checks
 each count just after it against what the code implies; the launches of the
@@ -181,6 +197,293 @@ def k4_bound(b, ma, mb, f, elem_bytes):
 def k3_cost(n):
     """Three f32 reads and two writes per element; 6 flops."""
     return 20.0 * n, 6.0 * n
+
+
+# ---------------------------------------------------------------------- #
+# The LM serving path (slice 3): zamba2-1.2b prefill + decode, K5 and K6  #
+# ---------------------------------------------------------------------- #
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "zamba2-1.2b", 4, 1024, 32
+LM_SMALL_LAYERS, LM_SMALL_PROMPT, LM_SMALL_STEPS = 6, 256, 4
+BF16_TC_FLOP_PER_S = 989e12     # dense bf16 tensor-core rate (data sheet)
+K5_F32_RTOL = 5e-5   # f32 products summed in another order, of the largest output
+K5_BF16_RTOL = 2.0 ** -8   # both round one f32 result to bf16: one bf16 step
+K6_RTOL = 1e-4       # f32 chunk sums in another order (the JAX SSD test's rtol)
+# The card against the CPU, the same f32 model: f32 reductions in other orders
+# through 6 layers, one attention and two SSD chunks (the CPU tests see 1e-6
+# between the port and the JAX package), of the largest |logit|.
+LM_SMALL_RTOL = 1e-3
+# K5's cases, all bf16 as the models compute: (label, (B, H, KV, S, D), timing
+# repeats, the SDPA call that computes the same function or None, options).
+# The first is the zamba2 path's shape; gemma2's softcap has no SDPA twin.
+K5_CASES = [
+    ("zamba2 path", (LM_BATCH, 32, 32, LM_PROMPT, 64), 20, "causal", dict(causal=True)),
+    ("gemma2-9b local layer", (1, 16, 8, 8192, 256), 3, None,
+     dict(causal=True, window=4096, softcap=50.0)),
+    ("hubert-xlarge", (2, 16, 16, 1024, 80), 10, "full", dict(causal=False)),
+    ("paligemma-3b prefix-LM", (2, 8, 1, 512, 256), 10, "prefix",
+     dict(causal=True, prefix_len=256)),
+]
+# K6's cases: (label, (B, S, H, P, G, N, chunk), timing repeats).
+K6_CASES = [
+    ("zamba2 path", (LM_BATCH, LM_PROMPT, 64, 64, 1, 64, 128), 20),
+    ("mamba2-780m", (LM_BATCH, LM_PROMPT, 48, 64, 1, 128, 128), 20),
+]
+SDPA_RTOL = 2.0 ** -5   # SDPA rounds P to bf16 before P·V; the reference keeps it f32
+
+
+def k5_cost(b, h, kvh, s, d, elem_bytes, pairs):
+    """Bytes: q, k, v read once, out written once.  Operations on the
+    ``pairs`` visible (query, key) pairs of each head: QKᵀ, 2D flops a pair,
+    on the tensor cores at the dense bf16 rate for bf16 operands (their
+    products are exact in f32), else at the f32 rate; P·V, 2D flops a pair
+    with P in f32 as the reference has it, at the f32 rate; one exp a pair at
+    the SFU rate.  The three units run side by side: the longest counts."""
+    bytes_moved = elem_bytes * (2 * b * h * s * d + 2 * b * kvh * s * d)
+    product = 2.0 * d * pairs * b * h
+    tensor = product if elem_bytes == 2 else 0.0
+    f32 = product if elem_bytes == 2 else 2 * product
+    t_ops = max(tensor / BF16_TC_FLOP_PER_S, f32 / F32_FLOP_PER_S,
+                pairs * b * h / SFU_PER_S) * 1e3
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k6_cost(b, s, h, p, g, n, q):
+    """Bytes: x, dt, B, C, a, D read once, y and the final state written
+    once, f32.  Flops per chunk and head on its lower triangle of Q(Q+1)/2
+    pairs: C·B (2N a pair), scores·(dt x) (2P a pair), C·h and the state
+    update (2QNP each), at the f32 rate."""
+    bytes_moved = 4.0 * (2 * b * s * h * p + b * s * h + 2 * b * s * g * n + 2 * h
+                         + b * h * n * p)
+    tri = q * (q + 1) // 2
+    flops = float(b * h * (s // q)) * (2 * n * tri + 2 * p * tri + 4 * q * n * p)
+    return bound(bytes_moved, flops)
+
+
+def lm_phases(torch, dev):
+    """[kernels] K5 and K6 against their plain versions, [lm-small], [lm] and
+    [check lm].  Returns the kernels' summary entries and the path's counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.attention import kernel as attn_kern, ops as attn_ops
+    from repro_torch.kernels.attention import ref as attn_ref
+    from repro_torch.kernels.ssd import kernel as ssd_kern, ops as ssd_ops, ref as ssd_ref
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import Model
+
+    def randn(shape, seed, dtype=torch.float32):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(shape, device=dev, generator=g).to(dtype)
+
+    def errs(out, ref):
+        """(max |out - ref|, the scale max(1, max |ref|) its tolerance is of)."""
+        out, ref = out.float(), ref.float()
+        return (out - ref).abs().max().item(), max(1.0, ref.abs().max().item())
+
+    def rel_err(out, ref):
+        err, scale = errs(out, ref)
+        return err / scale
+
+    # ---- K5 at the path's shape and the repo's other attention shapes --- #
+    def k5_case(label, b, h, kvh, s, d, dtype, reps, sdpa=None, **opts):
+        q, k, v = (randn((b, n_, s, d), seed, dtype)
+                   for n_, seed in ((h, 40), (kvh, 41), (kvh, 42)))
+        out = attn_ops.flash_attention(q, k, v, **opts)
+        ref = attn_ref.attention_ref(q, k, v, **opts)
+        err, scale = errs(out, ref)
+        del out, ref
+        torch.cuda.empty_cache()
+        tol = K5_F32_RTOL if dtype == torch.float32 else K5_BF16_RTOL
+        ms = time_ms(torch, lambda: attn_ops.flash_attention(q, k, v, **opts), reps)
+        plain = time_ms(torch, lambda: attn_ref.attention_ref(q, k, v, **opts), 1)
+        torch.cuda.empty_cache()
+        lib = None
+        if sdpa is not None:
+            # the same function, up to SDPA's own bf16 rounding of P
+            err_lib = rel_err(sdpa(q, k, v), attn_ref.attention_ref(q, k, v, **opts))
+            check(err_lib <= SDPA_RTOL, f"K5 {label}: SDPA does not compute the same "
+                  f"function here ({err_lib})")
+            lib = time_ms(torch, lambda: sdpa(q, k, v), reps)
+        pos = torch.arange(s, device=dev)
+        pairs = int(attn_ref.visible(pos, pos, opts.get("causal", True), opts.get("window"),
+                                     opts.get("prefix_len", 0)).sum())
+        bms, by = k5_cost(b, h, kvh, s, d, q.element_size(), pairs)
+        print(f"[kernels] K5 flash_attention {label} q ({b},{h},{s},{d}) kv {kvh} "
+              f"{str(dtype).replace('torch.', '')} {opts}: max_abs_err {err:.3e} "
+              f"(tol {tol:g} x {scale:.3g}), kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA "
+              f"{'-' if lib is None else f'{lib:.4f}'} ms, bound {bms:.4f} ms ({by})")
+        check(err <= tol * scale, f"K5 {label} disagrees with its plain version: {err}")
+        del q, k, v
+        torch.cuda.empty_cache()
+        return dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=lib)
+
+    sdpa_calls = {
+        "causal": lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        "full": lambda q, k, v: F.scaled_dot_product_attention(q, k, v),
+    }
+    k5_rows = []
+    for label, (b, h, kvh, s, d), reps, sdpa, opts in K5_CASES:
+        fn = sdpa_calls.get(sdpa)
+        if sdpa == "prefix":      # the prefix-LM mask as a boolean mask, MQA
+            mask = attn_ref.visible(torch.arange(s, device=dev), torch.arange(s, device=dev),
+                                    True, None, opts["prefix_len"])
+            fn = lambda q, k, v, m=mask: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=m, enable_gqa=True)
+        k5_rows.append(k5_case(label, b, h, kvh, s, d, torch.bfloat16, reps, sdpa=fn, **opts))
+
+    # ---- K6 at the path's shape and mamba2-780m's ----------------------- #
+    def ssd_inputs(b, s, h, p, g, n, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return (torch.randn((b, s, h, p), device=dev, generator=gen),
+                torch.rand((b, s, h), device=dev, generator=gen) * 0.1 + 0.001,
+                -torch.linspace(1.0, 16.0, h, device=dev),
+                torch.randn((b, s, g, n), device=dev, generator=gen) * 0.3,
+                torch.randn((b, s, g, n), device=dev, generator=gen) * 0.3,
+                torch.ones(h, device=dev))
+
+    def k6_case(label, b, s, h, p, g, n, q, reps):
+        args = ssd_inputs(b, s, h, p, g, n, 50)
+        y, hf = ssd_ops.ssd_forward(*args, chunk=q, return_state=True)
+        y_ref, h_ref = ssd_ref.ssd_chunked_ref(*args, q)
+        (ey, sy), (eh, sh) = errs(y, y_ref), errs(hf, h_ref)
+        err, rel = max(ey, eh), max(ey / sy, eh / sh)
+        del y, hf, y_ref, h_ref
+        ms = time_ms(torch, lambda: ssd_ops.ssd_forward(*args, chunk=q, return_state=True),
+                     reps)
+        plain = time_ms(torch, lambda: ssd_ref.ssd_chunked_ref(*args, q), 3)
+        bms, by = k6_cost(b, s, h, p, g, n, q)
+        print(f"[kernels] K6 ssd_chunk {label} x ({b},{s},{h},{p}) B/C G={g} N={n} chunk {q}: "
+              f"max_abs_err y and state {err:.3e}, relative {rel:.3e} (tol {K6_RTOL:g}), "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), smem "
+              f"{ssd_kern.smem_bytes(q, p, n)} B/block")
+        check(rel <= K6_RTOL, f"K6 {label} disagrees with its plain version: {rel}")
+        return dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                    bound_by=by, library_ms=None)
+
+    k6_rows = [k6_case(label, *shape, reps) for label, shape, reps in K6_CASES]
+    torch.cuda.empty_cache()
+
+    # ---- [lm-small]: full width, 6 layers, the card against the CPU ------ #
+    cfg_small = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_SMALL_LAYERS,
+                                    compute_dtype="float32")
+    cpu_model = Model(cfg_small, device="cpu").init(torch.Generator().manual_seed(0))
+    card_model = Model(cfg_small, device=dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg_small.vocab, size=(1, LM_SMALL_PROMPT + LM_SMALL_STEPS)))
+    worst = 0.0
+    logits = {}
+    for where, model in (("cpu", cpu_model), ("cuda", card_model)):
+        _build.reset_launch_counts()       # read after the card's run, the last
+        t = toks.to(model.device)
+        out, cache = model.prefill({"tokens": t[:, :LM_SMALL_PROMPT]},
+                                   LM_SMALL_PROMPT + LM_SMALL_STEPS)
+        outs = [out.cpu()]
+        for i in range(LM_SMALL_PROMPT, LM_SMALL_PROMPT + LM_SMALL_STEPS):
+            out, cache = model.decode_step(cache, t[:, i:i + 1])
+            outs.append(out.cpu())
+        logits[where] = outs
+    small_counts = dict(_build.launch_counts)
+    for a_, b_ in zip(logits["cuda"], logits["cpu"]):
+        check(bool(torch.isfinite(a_).all()), "lm-small: non-finite logits on the card")
+        worst = max(worst, rel_err(a_, b_))
+    print(f"[lm-small] {LM_ARCH} full width, {LM_SMALL_LAYERS} layers, f32, batch 1, prompt "
+          f"{LM_SMALL_PROMPT}, {LM_SMALL_STEPS} teacher-forced decode steps: card vs CPU "
+          f"logits max_rel_err {worst:.3e} (tol {LM_SMALL_RTOL:g}); card launches "
+          f"{json.dumps({k: v for k, v in small_counts.items() if v})}")
+    check(worst <= LM_SMALL_RTOL, f"lm-small: the card and the CPU disagree: {worst}")
+    check(small_counts["flash_attention"] == 1 and small_counts["ssd_chunk"] == LM_SMALL_LAYERS,
+          f"lm-small: launches {small_counts}")
+    del cpu_model, card_model, logits
+    torch.cuda.empty_cache()
+
+    # ---- [lm]: the serving entry point at full width and depth ----------- #
+    rec = {"flash_attention_cuda": [], "ssd_chunk_cuda": []}
+    saved = [(attn_kern, "flash_attention_cuda"), (ssd_kern, "ssd_chunk_cuda")]
+    originals = [getattr(mod, name) for mod, name in saved]
+    for (mod, name), fn in zip(saved, originals):
+        def wrapped(*args, _fn=fn, _name=name, **kw):
+            out = _fn(*args, **kw)
+            rec[_name].append((args, kw, out))
+            return out
+        setattr(mod, name, wrapped)
+    argv = ["--arch", LM_ARCH, "--preset", "full", "--batch", str(LM_BATCH),
+            "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN), "--device", str(dev)]
+    try:
+        _build.reset_launch_counts()
+        res = serve.serve_lm(serve.parser().parse_args(argv))
+        lm_counts = dict(_build.launch_counts)
+    finally:
+        for (mod, name), fn in zip(saved, originals):
+            setattr(mod, name, fn)
+    cfg = get_config(LM_ARCH)
+    napp = cfg.n_layers // cfg.shared_attn_every
+    print(f"[lm] {LM_ARCH} {cfg.n_layers} layers d_model {cfg.d_model} {res['compute_dtype']}, "
+          f"batch {LM_BATCH}, prompt {LM_PROMPT}, gen {LM_GEN}: prefill_ms "
+          f"{res['prefill_ms']:.3f}, decode_ms {res['decode_ms']:.3f}, tok_per_s "
+          f"{res['tok_per_s']:.1f}, peak_device_bytes {res['peak_device_bytes']}; launches "
+          f"prefill "
+          f"{json.dumps(res['launches_prefill'])} decode {json.dumps(res['launches_decode'])}")
+    print(f"[lm] sample token ids {res['tokens'][0][:12].tolist()}")
+    toks_lm = res["tokens"]
+    check(toks_lm.shape == (LM_BATCH, LM_GEN) and ((toks_lm >= 0) & (toks_lm < cfg.vocab)).all(),
+          "lm: generated tokens are not ids of the vocabulary")
+    check(bool(torch.isfinite(res["last_logits"]).all()), "lm: non-finite logits")
+    want = {name: 0 for name in lm_counts}
+    want_pre = dict(want, flash_attention=napp, ssd_chunk=cfg.n_layers)
+    check(res["launches_prefill"] == want_pre and res["launches_decode"] == want
+          and lm_counts == want_pre,
+          f"lm: launches {lm_counts} (prefill {res['launches_prefill']}, decode "
+          f"{res['launches_decode']}), expected prefill {want_pre} and none in decode")
+    # A steady-state reading: the same entry point with one untimed prefill,
+    # then a torch.profiler trace of one prefill and one decode step.
+    res2 = serve.serve_lm(serve.parser().parse_args(argv + ["--warmup", "1", "--profile"]))
+    print(f"[lm] after a warm-up prefill: prefill_ms {res2['prefill_ms']:.3f}, decode_ms "
+          f"{res2['decode_ms']:.3f}, tok_per_s {res2['tok_per_s']:.1f}; the same tokens as "
+          f"the first run: {bool(np.array_equal(res2['tokens'], toks_lm))}")
+
+    # ---- [check lm]: every K5 / K6 launch of the path, replayed plain ---- #
+    worst5 = worst6 = abs5 = abs6 = 0.0
+    for args, kw, out in rec["flash_attention_cuda"]:
+        err, scale = errs(out, attn_ref.attention_ref(*args, **kw))
+        worst5, abs5 = max(worst5, err / scale), max(abs5, err)
+    for args, kw, out in rec["ssd_chunk_cuda"]:
+        x, dt, a, b_mat, c_mat, d_vec, chunk, _ = args
+        y_ref, h_ref = ssd_ref.ssd_chunked_ref(x, dt, a, b_mat, c_mat, d_vec, chunk)
+        for got, ref in ((out[0], y_ref), (out[1], h_ref)):
+            err, scale = errs(got, ref)
+            worst6, abs6 = max(worst6, err / scale), max(abs6, err)
+    print(f"[check lm] K5: {len(rec['flash_attention_cuda'])} launches of the path against "
+          f"the plain version, max_abs_err {abs5:.3e}, relative {worst5:.3e} (tol "
+          f"{K5_BF16_RTOL:g}); K6: {len(rec['ssd_chunk_cuda'])} launches, y and final state "
+          f"max_abs_err {abs6:.3e}, relative {worst6:.3e} (tol {K6_RTOL:g})")
+    check(len(rec["flash_attention_cuda"]) == napp and len(rec["ssd_chunk_cuda"]) == cfg.n_layers,
+          "check lm: the recorded launches are not the path's")
+    check(worst5 <= K5_BF16_RTOL, f"check lm: K5 disagrees on the path's inputs: {worst5}")
+    check(worst6 <= K6_RTOL, f"check lm: K6 disagrees on the path's inputs: {worst6}")
+    del rec, res, res2
+    torch.cuda.empty_cache()
+
+    def entry(name, source, replaces, rows, path_max):
+        main = rows[0]
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=lm_counts[name], launches_path="lm",
+                    launches_by_path={"lm": lm_counts[name]}, shape=main["shape"],
+                    max_abs_err=max([r["max_abs_err"] for r in rows] + [path_max]),
+                    ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                    bound_by=main["bound_by"], library_ms=main["library_ms"],
+                    per_shape=rows)
+
+    return [entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+                  "src/repro/kernels/attention/kernel.py:82", k5_rows, abs5),
+            entry("ssd_chunk", "src/repro_torch/csrc/ssd_chunk.cu",
+                  "src/repro/kernels/ssd/kernel.py:66", k6_rows, abs6)], lm_counts
 
 
 def main() -> int:
@@ -662,9 +965,12 @@ def main() -> int:
     want3["zmu_update"] = MAX_IT
     check(k3_counts == want3, f"K3 path launches {k3_counts}, expected {want3}")
 
-    # ---- 9. summary --------------------------------------------------- #
+    # ---- 9-12. the LM serving path ------------------------------------ #
+    lm_kernels, lm_counts = lm_phases(torch, dev)
+
+    # ---- 13. summary -------------------------------------------------- #
     by_path = {"main": main_counts, "lap": lap_counts, "accurate": acc_counts,
-               "k3-path": k3_counts}
+               "k3-path": k3_counts, "lm": lm_counts}
 
     def entry(name, source, replaces, path, main_row, rows_all):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -685,7 +991,7 @@ def main() -> int:
               "src/repro/kernels/admm_update/kernel.py:28", "k3-path", k3_row, [k3_row]),
         entry("laplacian_block", "src/repro_torch/csrc/laplacian_block.cu",
               "src/repro/kernels/compress/laplacian.py:47", "lap", k4_rows[2], k4_rows),
-    ]
+    ] + lm_kernels
     print(f"[summary] card {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of the HSS-ADMM kernel SVM (``repro`` is the JAX reference).
+"""PyTorch + CUDA port of the HSS-ADMM kernel SVM and of the LM serving path of
+the ssm / hybrid families (``repro`` is the JAX reference).
 
 The module layout mirrors ``repro``: ``core/tree.py`` here is the
 counterpart of ``repro/core/tree.py``, and so on.  Every kernel that the

@@ -5,6 +5,8 @@ Each stage can then be held against the reference in isolation: a JAX
 the port's ADMM, a JAX-trained model into the port's scoring.  The one
 format difference is the root LU pivots: ``jax.scipy.linalg.lu_factor``
 returns 0-based pivots, ``torch.linalg.lu_factor`` 1-based (LAPACK) ones.
+An LM's parameter dict (``Model.init`` of the JAX package, as numpy) becomes
+the port's ``Model`` through ``lm_params_from_numpy``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,10 @@ from repro_torch.core.engine import EngineModel
 from repro_torch.core.factorization import HSSFactorization
 from repro_torch.core.hss import HSSMatrix
 from repro_torch.core.kernelfn import KernelSpec
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import AttnParams, MLPParams
+from repro_torch.models.ssm import SSMParams
+from repro_torch.models.transformer import Model
 
 
 def _t(a: np.ndarray, device) -> torch.Tensor:
@@ -77,3 +83,33 @@ def engine_model_from_numpy(*, x_perm: np.ndarray, z_y: np.ndarray,
         classes=classes, spec=KernelSpec(kernel_name, float(h)),
         c_value=float(c_value),
         beta=None if beta is None else float(beta))
+
+
+@torch.no_grad()
+def lm_params_from_numpy(cfg: ModelConfig, params: dict, device="cuda") -> Model:
+    """The port's ``Model`` of ``cfg`` holding ``params``: the nested dict
+    that the JAX ``Model.init`` returns (per-layer leaves stacked over L),
+    as numpy arrays.  Both then compute the same function."""
+    model = Model(cfg, device=device)
+
+    def put(p: torch.nn.Parameter, a):
+        p.copy_(torch.as_tensor(np.array(a)).to(p.dtype))
+
+    put(model.embed, params["embed"])
+    put(model.final_norm, params["final_norm"])
+    if model.head is not None:
+        put(model.head, params["head"])
+    lp = params["layers"]
+    for idx, layer in enumerate(model.layers):
+        put(layer.ln1, lp["ln1"][idx])
+        for name in SSMParams._fields:
+            put(getattr(layer, name), lp["ssm"][name][idx])
+    if model.shared is not None:
+        sp = params["shared"]
+        put(model.shared.ln1, sp["ln1"])
+        put(model.shared.ln2, sp["ln2"])
+        for name in AttnParams._fields:
+            put(getattr(model.shared, name), sp["attn"][name])
+        for name in MLPParams._fields:
+            put(getattr(model.shared, name), sp["mlp"][name])
+    return model

@@ -15,4 +15,6 @@ Kernels:
                  ``compress/verify.py`` the comparison of K2's row IDs with
                  the plain version's where rounding decides a pivot
   admm_update  — fused ADMM z-projection + multiplier update (K3)
+  attention    — flash attention: causal, window, prefix, softcap, GQA (K5)
+  ssd          — the Mamba-2 SSD chunk scan with its final state (K6)
 """

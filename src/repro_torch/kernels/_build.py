@@ -28,7 +28,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("gaussian_block", "fused_assemble_id", "zmu_update", "laplacian_block")
+KERNELS = ("gaussian_block", "fused_assemble_id", "zmu_update", "laplacian_block",
+           "flash_attention", "ssd_chunk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -14,6 +14,8 @@ import torch
 from repro_torch.core import idqr
 from repro_torch.kernels import _build
 from repro_torch.kernels.admm_update import ops as aops, ref as aref
+from repro_torch.kernels.attention import ops as attn_ops, ref as attn_ref
+from repro_torch.kernels.ssd import ops as ssd_ops, ref as ssd_ref
 from repro_torch.kernels.compress import kernel as ckern, laplacian as lops, ref as cref
 from repro_torch.kernels.gaussian import ops as gops, ref as gref
 
@@ -122,3 +124,65 @@ def test_zmu_update_kernel_matches_plain(dev):
     z_ref, mu_ref = aref.fused_zmu_update_ref(x, mu, c, 1e4)
     assert (z - z_ref).abs().max().item() <= 1e-5
     assert (mu_new - mu_ref).abs().max().item() <= 1e-5 * mu_ref.abs().max().item()
+
+
+@pytest.mark.parametrize("b,h,kvh,s,d,dtype,opts", [
+    (1, 2, 2, 100, 64, torch.float32, dict(causal=True)),            # S off the tile
+    (2, 4, 1, 70, 80, torch.float32, dict(causal=False)),            # D 80, MQA
+    (1, 4, 2, 130, 128, torch.bfloat16, dict(causal=True, window=33)),
+    (1, 2, 1, 96, 256, torch.bfloat16, dict(causal=True, softcap=50.0, window=40)),
+    (2, 2, 1, 77, 256, torch.float32, dict(causal=True, prefix_len=20)),
+    (1, 3, 3, 65, 32, torch.float32, dict(causal=True, window=16, prefix_len=9)),
+])
+def test_flash_attention_kernel_matches_plain(dev, b, h, kvh, s, d, dtype, opts):
+    """K5 against its plain version.  f32: the same f32 products summed in
+    another order (5e-5 of the largest output); bf16: both round one f32
+    result to bf16, at most one bf16 step (2^-8 relative) apart."""
+    q = _randn((b, h, s, d), dev, 20).to(dtype)
+    k = _randn((b, kvh, s, d), dev, 21).to(dtype)
+    v = _randn((b, kvh, s, d), dev, 22).to(dtype)
+    before = _build.launch_counts["flash_attention"]
+    out = attn_ops.flash_attention(q, k, v, **opts)
+    assert _build.launch_counts["flash_attention"] == before + 1
+    assert out.shape == (b, h, s, d) and out.dtype == dtype
+    ref = attn_ref.attention_ref(q, k, v, **opts).float()
+    tol = (5e-5 if dtype == torch.float32 else 2 ** -8) * max(1.0, ref.abs().max().item())
+    assert (out.float() - ref).abs().max().item() <= tol
+
+
+def test_flash_attention_takes_the_models_transposed_views(dev):
+    """The model passes (B, S, heads, D) projections as transposed views."""
+    q = _randn((2, 50, 4, 64), dev, 23)
+    k = _randn((2, 50, 2, 64), dev, 24)
+    v = _randn((2, 50, 2, 64), dev, 25)
+    out = attn_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    ref = attn_ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    assert out.transpose(1, 2).is_contiguous()
+    assert (out - ref).abs().max().item() <= 5e-5 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,state", [
+    (1, 64, 2, 64, 1, 64, 64, True),         # one chunk
+    (2, 256, 4, 64, 2, 64, 128, True),       # two chunks, G = 2
+    (1, 384, 2, 64, 1, 128, 128, False),     # mamba2-780m's N = 128
+    (2, 96, 6, 40, 3, 16, 32, True),         # ragged P and N
+])
+def test_ssd_chunk_kernel_matches_plain(dev, b, s, h, p, g, n, chunk, state):
+    """K6 against its plain version, y and the final state: the same f32
+    products summed in another order (1e-4 of the largest value)."""
+    gen = torch.Generator(device=dev).manual_seed(30)
+    x = torch.randn((b, s, h, p), device=dev, generator=gen)
+    dt = torch.rand((b, s, h), device=dev, generator=gen) * 0.1 + 0.01
+    a = -torch.rand((h,), device=dev, generator=gen) - 0.1
+    bm = torch.randn((b, s, g, n), device=dev, generator=gen) * 0.3
+    cm = torch.randn((b, s, g, n), device=dev, generator=gen) * 0.3
+    d = torch.randn((h,), device=dev, generator=gen) * 0.1
+    before = _build.launch_counts["ssd_chunk"]
+    out = ssd_ops.ssd_forward(x, dt, a, bm, cm, d, chunk=chunk, return_state=state)
+    assert _build.launch_counts["ssd_chunk"] == before + 1
+    y_ref, h_ref = ssd_ref.ssd_chunked_ref(x, dt, a, bm, cm, d, chunk)
+    y = out[0] if state else out
+    assert (y - y_ref).abs().max().item() <= 1e-4 * max(1.0, y_ref.abs().max().item())
+    if state:
+        assert out[1].shape == (b, h, n, p)
+        assert (out[1] - h_ref).abs().max().item() <= 1e-4 * max(1.0, h_ref.abs().max().item())

@@ -22,6 +22,8 @@ from repro.kernels.compress import ops as jcops
 from repro.kernels.gaussian import ops as jgops
 from repro_torch.kernels import _build
 from repro_torch.kernels.admm_update import kernel as akern, ops as aops
+from repro_torch.kernels.attention import kernel as attn_kern
+from repro_torch.kernels.ssd import kernel as ssd_kern
 from repro_torch.core import kernelfn as tkfn
 from repro_torch.kernels.compress import kernel as ckern, laplacian as lops, ops as cops
 from repro_torch.kernels.compress import ref as cref, verify
@@ -281,8 +283,11 @@ def test_zmu_update_matches_pallas(n, beta):
     lambda t: akern.fused_zmu_update_cuda(t[:, 0].contiguous(), t[:, 0].contiguous(),
                                           t[:, 0].contiguous(), 1.0),
     lambda t: lops.laplacian_block_cuda(t[None], t[None], 1.0),
+    lambda t: attn_kern.flash_attention_cuda(t[None, None], t[None, None], t[None, None]),
+    lambda t: ssd_kern.ssd_chunk_cuda(t[None, :, None], t[None, :, :1], t[0, :1],
+                                      t[None, :, None], t[None, :, None], t[0, :1], 4),
 ], ids=["gaussian_block", "fused_assemble_id", "fused_assemble_id_laplacian",
-        "zmu_update", "laplacian_block"])
+        "zmu_update", "laplacian_block", "flash_attention", "ssd_chunk"])
 def test_kernel_launchers_refuse_cpu_tensors(launch):
     """A launcher takes CUDA tensors only: on anything else it raises before
     building or launching, and its launch count does not move."""
