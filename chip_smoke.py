@@ -23,11 +23,14 @@ Phases, each printed on its own lines, none of them allowed to fail:
                  again by the plain version on the inputs the path gave it
                  (K2's pivots and R as the path's launch returned them, held
                  with repro_torch.kernels.compress.verify), and K2 is timed
-                 on the path's leaf and first upper level;
+                 at every level of the path, at the planner's cluster size
+                 and at every other that fits (the leaf and first upper
+                 level also beside the plain version), summed per build;
   6. lap       — the same data with KernelSpec("laplacian", h=2) at the crude
                  preset (CompressionParams.crude()); accuracy >= 0.93; its
-                 check as above for K4 and K2, and K2 again on the path's
-                 leaf and first upper level with dead candidates added;
+                 check and K2's timing as above for K4 and K2, and K2 again
+                 on the path's leaf and first upper level with dead
+                 candidates added;
   7. accurate  — 10^6 points of 2-feature circles, gaussian h=1.5, at the
                  accurate preset (CompressionParams.accurate()), leaf 256;
                  accuracy >= 0.99, and the adaptive ranks below the cap; its
@@ -233,15 +236,17 @@ SDPA_RTOL = 2.0 ** -5   # SDPA rounds P to bf16 before P·V; the reference keeps
 
 def k5_cost(b, h, kvh, s, d, elem_bytes, pairs):
     """Bytes: q, k, v read once, out written once.  Operations on the
-    ``pairs`` visible (query, key) pairs of each head: QKᵀ, 2D flops a pair,
-    on the tensor cores at the dense bf16 rate for bf16 operands (their
-    products are exact in f32), else at the f32 rate; P·V, 2D flops a pair
-    with P in f32 as the reference has it, at the f32 rate; one exp a pair at
-    the SFU rate.  The three units run side by side: the longest counts."""
+    ``pairs`` visible (query, key) pairs of each head, 2D flops a pair for
+    QKᵀ and 2D for P·V.  bf16 operands: QKᵀ on the tensor cores at the dense
+    bf16 rate (their products are exact in f32), and P·V with the
+    reference's f32 P as the least the card can do it, two bf16 products
+    P_hi·V + P_lo·V on the tensor cores (6D flops a pair in all).  f32
+    operands: both products at the f32 rate (no TF32).  One exp a pair at
+    the SFU rate.  The units run side by side: the longest counts."""
     bytes_moved = elem_bytes * (2 * b * h * s * d + 2 * b * kvh * s * d)
     product = 2.0 * d * pairs * b * h
-    tensor = product if elem_bytes == 2 else 0.0
-    f32 = product if elem_bytes == 2 else 2 * product
+    tensor = 3 * product if elem_bytes == 2 else 0.0
+    f32 = 0.0 if elem_bytes == 2 else 2 * product
     t_ops = max(tensor / BF16_TC_FLOP_PER_S, f32 / F32_FLOP_PER_S,
                 pairs * b * h / SFU_PER_S) * 1e3
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -834,27 +839,56 @@ def main() -> int:
         check(res["r_err"] <= K2_R_ATOL, f"K2 {tag} {label}: R disagrees: {res['r_err']}")
         return res
 
+    def k2_time(args, reps, cluster=None):
+        return time_ms(torch, lambda: ckern.fused_assemble_id_cuda(*args, cluster=cluster),
+                       reps)
+
+    def k2_plan(args):
+        """(C, TPC, RREG) of the plan the launcher takes for one level's
+        inputs, its shared bytes (the kernel's count) and the card's
+        co-resident clusters of it."""
+        xc, xp, _, k, _, kind = args
+        b, m, _ = xc.shape
+        s_ = xp.shape[1]
+        dev_i = torch.cuda.current_device()
+        props = torch.cuda.get_device_properties(dev_i)
+        c, tpc, rreg = ckern.plan(b, m, s_, k, props.multi_processor_count,
+                                  props.shared_memory_per_block_optin)
+        return (c, tpc, rreg, ckern.kernel_smem_bytes(m, s_, k, c, tpc, rreg),
+                ckern.max_active_clusters(m, s_, k, c, tpc, rreg, dev_i, kind))
+
+    def k2_sweep(args, reps):
+        """K2 at every cluster size that fits this level (the planner's
+        evidence): {C: ms}."""
+        xc, xp, _, k, _, _ = args
+        b, m, _ = xc.shape
+        return {c: k2_time(args, reps, c) for c, _, _ in ckern.feasible(m, xp.shape[1], k, b)}
+
     def k2_row(tag, label, args, reps, plain_reps, extra=None):
-        """Device times of K2 and its plain version on one level's inputs."""
+        """Device times of K2 and its plain version on one level's inputs,
+        and K2 at every cluster size that fits."""
         xc, xp, cm, k, h, kind = args
-        ms = time_ms(torch, lambda: ckern.fused_assemble_id_cuda(*args), reps)
+        ms = k2_time(args, reps)
         plain = time_ms(torch, lambda: cref.fused_assemble_id_ref(*args), plain_reps)
         torch.cuda.empty_cache()
         b, m, f = xc.shape
         s_ = xp.shape[1]
         bms, by = bound(*k2_cost(b, m, s_, f, k, kind))
-        q_global = ckern.plan(m, s_, k, torch.cuda.current_device()) == ckern.Q_IN_GLOBAL
+        c, tpc, rreg, smem, active = k2_plan(args)
+        sweep = k2_sweep(args, reps)
         print(f"[kernels] K2 fused_assemble_id {kind} {tag} {label} B={b} m={m} s={s_} "
               f"k={k} f={f}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms "
-              f"({by}), smem {ckern.smem_bytes(m, s_, k, q_global)} B/node, "
-              f"Q in {'global' if q_global else 'shared'} memory")
+              f"({by}), cluster C={c} TPC={tpc} register rows {rreg}, smem {smem} B/CTA, "
+              f"{active} clusters co-resident; each C: "
+              + ", ".join(f"C={cc} {t:.4f} ms" for cc, t in sweep.items()))
         return dict(shape=f"{kind} {tag} {label}", ms=ms, plain_ms=plain, bound_ms=bms,
-                    bound_by=by, q_memory="global" if q_global else "shared",
-                    **(extra or {}))
+                    bound_by=by, cluster=c, threads_per_column=tpc, register_rows=rreg,
+                    ms_by_cluster={str(cc): t for cc, t in sweep.items()}, **(extra or {}))
 
     def check_path(tag, rec, spec, comp, min_match, plain_reps, pad_from):
         """Hold every launch of the path against the plain version, then
-        time K2 on the path's leaf and first upper level."""
+        time K2 at every level of the path (its leaf and level 1 beside the
+        plain version and at each cluster size) and print the build's sum."""
         if spec.name == "laplacian":
             check_blocks(tag, rec["laplacian_block_cuda"], lops.laplacian_block_cuda,
                          cref.laplacian_block_ref, K4_ATOL, spec, pad_from)
@@ -864,22 +898,44 @@ def main() -> int:
         levels = rec["fused_assemble_id_cuda"]
         total = mism = 0
         rows = []
+        sum_ms = sum_bound = 0.0
+        plans = []
         for lvl, (args, out) in enumerate(levels):
             label = "leaf" if lvl == 0 else f"level {lvl}"
             res = compare_k2(tag, label, args, out, comp.rtol,
                              min_match if lvl <= 1 else None, spec, pad_from)
             total += res["nodes"]
             mism += res["mismatches"]
+            xc, xp, _, k, _, kind = args
+            plans.append(k2_plan(args)[0])
             if lvl <= 1:
-                rows.append(k2_row(tag, label, args, 5 if lvl == 0 else 20, plain_reps,
-                                   dict(max_abs_err=res["r_err"],
-                                        pivot_mismatches=res["mismatches"],
-                                        untied_mismatches=res["untied"])))
+                row = k2_row(tag, label, args, 5 if lvl == 0 else 20, plain_reps,
+                             dict(max_abs_err=res["r_err"],
+                                  pivot_mismatches=res["mismatches"],
+                                  untied_mismatches=res["untied"]))
+                rows.append(row)
+                ms = row["ms"]
+            else:
+                sweep = k2_sweep(args, 20)
+                ms = sweep[plans[-1]]
+                print(f"[kernels] K2 fused_assemble_id {kind} {tag} {label} B={xc.shape[0]} "
+                      f"m={xc.shape[1]} s={xp.shape[1]} k={k}: kernel {ms:.4f} ms, "
+                      f"cluster C={plans[-1]}; each C: "
+                      + ", ".join(f"C={cc} {t:.4f} ms" for cc, t in sweep.items()))
+            sum_ms += ms
+            sum_bound += bound(*k2_cost(xc.shape[0], xc.shape[1], xp.shape[1], xc.shape[2],
+                                        k, kind))[0]
         print(f"[check {tag}] K2 over the path's {len(levels)} levels: {mism}/{total} nodes "
               f"differ on live pivots (need >= {min_match:.1%} equal)")
+        print(f"[kernels] K2 {tag} build: {len(levels)} launches, kernel {sum_ms:.4f} ms, "
+              f"bound {sum_bound:.4f} ms, gap {sum_ms - sum_bound:.4f} ms; cluster C by "
+              f"level {plans}")
         check(1 - mism / total >= min_match, f"K2 {tag}: {mism} of {total} nodes differ")
+        k2_builds[tag] = dict(launches=len(levels), ms=sum_ms, bound_ms=sum_bound,
+                              clusters=plans)
         return rows
 
+    k2_builds = {}
     blobs = synthetic.train_test("blobs", N_TRAIN, N_TEST, seed=0,
                                  n_features=N_FEATURES, sep=SEP)
     engine, rep, main_counts, z_main, rec = run_path("main", KernelSpec(h=H), params,
@@ -972,7 +1028,7 @@ def main() -> int:
     by_path = {"main": main_counts, "lap": lap_counts, "accurate": acc_counts,
                "k3-path": k3_counts, "lm": lm_counts}
 
-    def entry(name, source, replaces, path, main_row, rows_all):
+    def entry(name, source, replaces, path, main_row, rows_all, **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=by_path[path][name], launches_path=path,
                     launches_by_path={p: c[name] for p, c in by_path.items()},
@@ -980,13 +1036,14 @@ def main() -> int:
                     max_abs_err=max(r["max_abs_err"] for r in rows_all),
                     ms=main_row["ms"], plain_ms=main_row["plain_ms"],
                     bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-                    library_ms=None, per_shape=rows_all)
+                    library_ms=None, per_shape=rows_all, **extra)
 
     kernels = [
         entry("gaussian_block", "src/repro_torch/csrc/gaussian_block.cu",
               "src/repro/kernels/gaussian/kernel.py:37", "main", k1_rows[2], k1_rows),
         entry("fused_assemble_id", "src/repro_torch/csrc/fused_assemble_id.cu",
-              "src/repro/kernels/compress/kernel.py:142", "main", k2_rows[0], k2_rows),
+              "src/repro/kernels/compress/kernel.py:142", "main", k2_rows[0], k2_rows,
+              per_build=k2_builds),
         entry("zmu_update", "src/repro_torch/csrc/zmu_update.cu",
               "src/repro/kernels/admm_update/kernel.py:28", "k3-path", k3_row, [k3_row]),
         entry("laplacian_block", "src/repro_torch/csrc/laplacian_block.cu",

@@ -24,13 +24,22 @@ def _strides(t: torch.Tensor) -> list[int]:
     return [t.stride(0), t.stride(1), t.stride(2)]
 
 
+def _tma_ready(t: torch.Tensor) -> bool:
+    """Whether a TMA tensor map can describe ``t``: a 16-byte aligned base
+    and strides of 16-byte multiples on every dimension longer than 1 (as
+    every contiguous view of the port's head dims has)."""
+    return t.data_ptr() % 16 == 0 and all(
+        (t.stride(i) * t.element_size()) % 16 == 0 for i in range(3) if t.shape[i] > 1)
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int | None = None,
                          softcap: float = 0.0, prefix_len: int = 0) -> torch.Tensor:
     """q (B, H, S, D), k and v (B, KV, S, D), f32 or bf16, any strides with
     the last dimension contiguous (the model passes transposed views of its
     (B, S, heads, D) projections).  Returns (B, H, S, D) in q's type, a view
-    of a (B, S, H, D) tensor, so that ``.transpose(1, 2)`` is contiguous."""
+    of a (B, S, H, D) tensor, so that ``.transpose(1, 2)`` is contiguous.
+    bf16 runs the tensor-core kernel, f32 the CUDA-core one."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda) or not (
             q.device == k.device == v.device):
         raise ValueError("flash_attention_cuda needs q, k and v on one CUDA device")
@@ -51,6 +60,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention_cuda needs the head dim contiguous")
     if b * h > _MAX_GRID_Y:
         raise ValueError(f"B*H = {b * h} exceeds the launch grid")
+    if q.dtype == torch.bfloat16 and not all(_tma_ready(t) for t in (q, k, v)):
+        raise ValueError("flash_attention_cuda (bf16) needs 16-byte aligned bases and "
+                         "strides: pass contiguous views")
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     if out.numel() == 0:
         return out

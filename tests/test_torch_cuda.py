@@ -14,7 +14,8 @@ import torch
 from repro_torch.core import idqr
 from repro_torch.kernels import _build
 from repro_torch.kernels.admm_update import ops as aops, ref as aref
-from repro_torch.kernels.attention import ops as attn_ops, ref as attn_ref
+from repro_torch.kernels.attention import kernel as attn_kern, ops as attn_ops
+from repro_torch.kernels.attention import ref as attn_ref
 from repro_torch.kernels.ssd import ops as ssd_ops, ref as ssd_ref
 from repro_torch.kernels.compress import kernel as ckern, laplacian as lops, ref as cref
 from repro_torch.kernels.gaussian import ops as gops, ref as gref
@@ -72,29 +73,90 @@ def test_fused_assemble_id_laplacian_with_dead_slots(dev, b, m, s, f, k):
     assert (r - r_ref).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("kind", ["gaussian", "laplacian"])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_fused_assemble_id_each_cluster_size(dev, cluster, kind):
+    """K2 with each cluster size forced, dead candidates on one node: the
+    same pivots and R as the plain version whichever CTA owns a column."""
+    b, m, s, f, k = 5, 64, 48, 8, 12
+    xc, xp = _randn((b, m, f), dev, 12), _randn((b, s, f), dev, 13)
+    cmask = torch.ones((b, m), device=dev)
+    cmask[1, ::3] = 0.0
+    piv, r = ckern.fused_assemble_id_cuda(xc, xp, cmask, k, 1.5, kind, cluster=cluster)
+    piv_ref, r_ref = cref.fused_assemble_id_ref(xc, xp, cmask, k, 1.5, kind)
+    assert torch.equal(piv, piv_ref)
+    assert (r - r_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_fused_assemble_id_exact_tie_takes_the_lowest_index(dev, cluster):
+    """Three identical candidate columns (5, 40, 63: in different CTAs for
+    C >= 2) made the largest of each block: the first pivot is 5 on every
+    node, as jnp.argmax breaks ties."""
+    b, m, s, f, k = 4, 64, 48, 3, 8
+    xc = 3.0 * _randn((b, m, f), dev, 14)
+    xp = _randn((b, s, f), dev, 15)
+    norms = cref._assemble(xc, xp, 1.0, "gaussian").square().sum(-1)     # (b, m)
+    best = norms.argmax(1)
+    top = xc[torch.arange(b, device=dev), best].clone()
+    xc[torch.arange(b, device=dev), best] = 100.0        # its own column falls to 0
+    for j in (5, 40, 63):
+        xc[:, j] = top
+    cmask = torch.ones((b, m), device=dev)
+    piv, r = ckern.fused_assemble_id_cuda(xc, xp, cmask, k, 1.0, cluster=cluster)
+    piv_ref, _ = cref.fused_assemble_id_ref(xc, xp, cmask, k, 1.0)
+    assert piv[:, 0].tolist() == [5] * b
+    assert torch.equal(piv, piv_ref)
+
+
+def test_fused_assemble_id_plans_fit_the_card(dev):
+    """At the K2 shapes of the three paths and each cluster size that the
+    planner allows, the kernel's shared-memory count is the planner's, the
+    card holds such a cluster (cudaOccupancyMaxActiveClusters), and one CTA
+    a node runs as many CTAs an SM as the planner counts (ckern.ctas_per_sm)."""
+    d = torch.cuda.current_device()
+    for b, m, s, k in ((4096, 256, 64, 32), (2048, 64, 96, 32), (4096, 256, 192, 64),
+                       (2048, 128, 256, 64), (2, 128, 256, 64)):
+        for c, tpc, rreg in ckern.feasible(m, s, k, b):
+            assert ckern.kernel_smem_bytes(m, s, k, c, tpc, rreg) == ckern.smem_bytes(
+                m, s, k, c, tpc, rreg)
+            n_sm = torch.cuda.get_device_properties(d).multi_processor_count
+            for kind in ("gaussian", "laplacian"):
+                active = ckern.max_active_clusters(m, s, k, c, tpc, rreg, d, kind)
+                assert active >= 1, (m, s, k, c)
+                if c == 1:
+                    assert active >= ckern.ctas_per_sm(m, s, k, c, tpc, rreg) * n_sm, (
+                        m, s, k, active)
+
+
 @pytest.mark.parametrize("f", [2, 8])
 def test_fused_assemble_id_at_the_accurate_leaf(dev, f):
-    """The accurate preset's leaf (m=256, s=192, k=64), whose Q basis goes
-    to global memory, as the adaptive build uses it: ranks at rtol 1e-4
+    """The accurate preset's leaf (m=256, s=192, k=64), whose residual and
+    Q (255 KB) fit no single CTA's shared memory: one CTA a node keeps 32
+    rows of the residual in registers, clusters of 2, 4 and 8 keep it all in
+    shared memory; no global scratch either way.  At each cluster size, as
+    the adaptive build uses it: ranks at rtol 1e-4
     equal, pivots equal on the live slots (slot < rank) and R equal on the
     live rows.  With two features, as the accurate path's circles have, the
     rank of these blocks is ~45-53 of 64: past it |R_ii| is at f32 noise and
     the pivots are chosen by rounding; they are dead slots, which the build
     zeroes.  With eight features every slot is live."""
     b, m, s, k, rtol = 6, 256, 192, 64, 1e-4
-    assert ckern.plan(m, s, k, torch.cuda.current_device()) == ckern.Q_IN_GLOBAL
-    assert ckern.smem_bytes(m, s, k, q_global=True) == 200_800
+    assert ckern.plan(4096, m, s, k) == (1, 2, ckern.REG_ROWS)
+    assert ckern.kernel_smem_bytes(m, s, k, 1, 2, ckern.REG_ROWS) == ckern.smem_bytes(
+        m, s, k, 1, 2, ckern.REG_ROWS) == 220_864
     xc, xp = _randn((b, m, f), dev, 8), _randn((b, s, f), dev, 9)
     cmask = torch.ones((b, m), device=dev)
-    piv, r = ckern.fused_assemble_id_cuda(xc, xp, cmask, k, 1.0)
     piv_ref, r_ref = cref.fused_assemble_id_ref(xc, xp, cmask, k, 1.0)
-    _, rank = idqr.finish_interp(piv, r, rtol, keep_identity=False)
     _, rank_ref = idqr.finish_interp(piv_ref, r_ref, rtol, keep_identity=False)
-    assert torch.equal(rank, rank_ref)
-    assert int(rank.min()) >= (16 if f == 2 else k)
-    live = torch.arange(k, device=dev)[None, :] < rank[:, None]
-    assert torch.equal(piv[live], piv_ref[live])
-    assert (r - r_ref)[live].abs().max().item() <= 1e-4
+    for c, _, _ in ckern.feasible(m, s, k, 4096):
+        piv, r = ckern.fused_assemble_id_cuda(xc, xp, cmask, k, 1.0, cluster=c)
+        _, rank = idqr.finish_interp(piv, r, rtol, keep_identity=False)
+        assert torch.equal(rank, rank_ref)
+        assert int(rank.min()) >= (16 if f == 2 else k)
+        live = torch.arange(k, device=dev)[None, :] < rank[:, None]
+        assert torch.equal(piv[live], piv_ref[live])
+        assert (r - r_ref)[live].abs().max().item() <= 1e-4
 
 
 @pytest.mark.parametrize("b,ma,mb,f,dtype", [
@@ -150,6 +212,27 @@ def test_flash_attention_kernel_matches_plain(dev, b, h, kvh, s, d, dtype, opts)
     assert (out.float() - ref).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("opts", [
+    dict(causal=True),                                   # GQA, S off the tile
+    dict(causal=True, window=33, prefix_len=20),         # window + prefix
+    dict(causal=True, softcap=50.0, window=40),          # softcap
+    dict(causal=False),
+], ids=["gqa", "window-prefix", "softcap", "full"])
+@pytest.mark.parametrize("d", attn_kern.HEAD_DIMS)
+def test_flash_attention_bf16_tensor_cores_every_head_dim(dev, d, opts):
+    """The tensor-core kernel at every D of HEAD_DIMS: ragged S (not a
+    multiple of the 64-row or 64/32-key tiles), 4 query heads on 2 kv heads,
+    within one bf16 step (2^-8) of the largest output of the plain version."""
+    b, h, kvh, s = 2, 4, 2, 130
+    q = _randn((b, h, s, d), dev, 26).to(torch.bfloat16)
+    k = _randn((b, kvh, s, d), dev, 27).to(torch.bfloat16)
+    v = _randn((b, kvh, s, d), dev, 28).to(torch.bfloat16)
+    out = attn_ops.flash_attention(q, k, v, **opts)
+    ref = attn_ref.attention_ref(q, k, v, **opts).float()
+    assert out.shape == (b, h, s, d) and out.dtype == torch.bfloat16
+    assert (out.float() - ref).abs().max().item() <= 2 ** -8 * max(1.0, ref.abs().max().item())
+
+
 def test_flash_attention_takes_the_models_transposed_views(dev):
     """The model passes (B, S, heads, D) projections as transposed views."""
     q = _randn((2, 50, 4, 64), dev, 23)
@@ -159,6 +242,20 @@ def test_flash_attention_takes_the_models_transposed_views(dev):
     ref = attn_ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     assert out.transpose(1, 2).is_contiguous()
     assert (out - ref).abs().max().item() <= 5e-5 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("d", attn_kern.HEAD_DIMS)
+def test_flash_attention_bf16_takes_the_models_transposed_views(dev, d):
+    """The tensor-core kernel reads the model's transposed (B, S, heads, D)
+    views in place through its tensor maps, at every D."""
+    q = _randn((2, 50, 4, d), dev, 23).to(torch.bfloat16)
+    k = _randn((2, 50, 2, d), dev, 24).to(torch.bfloat16)
+    v = _randn((2, 50, 2, d), dev, 25).to(torch.bfloat16)
+    out = attn_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    ref = attn_ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2)).float()
+    assert out.transpose(1, 2).is_contiguous()
+    assert (out.float() - ref).abs().max().item() <= 2 ** -8 * max(1.0, ref.abs().max().item())
 
 
 @pytest.mark.parametrize("b,s,h,p,g,n,chunk,state", [
