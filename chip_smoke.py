@@ -44,7 +44,9 @@ Phases, each printed on its own lines, none of them allowed to fail:
                  window 4096 on S 8192, softcap 50), hubert-xlarge's D80
                  non-causal and paligemma-3b's MQA D256 prefix-LM; K6 (the SSD
                  chunk scan) at the path's shape and mamba2-780m's (N 128),
-                 y and the final state.  Kernel, plain and bound ms;
+                 bf16 (x, B and C as views of one xBC tensor, as the model
+                 hands them over) and f32, y and the final state.  Kernel,
+                 plain and bound ms;
  10. lm-small  — zamba2-1.2b at full width, 6 layers, f32: prefill of 256
                  tokens and 4 teacher-forced decode steps on the card against
                  the same model on the CPU; the logits agree;
@@ -226,10 +228,14 @@ K5_CASES = [
     ("paligemma-3b prefix-LM", (2, 8, 1, 512, 256), 10, "prefix",
      dict(causal=True, prefix_len=256)),
 ]
-# K6's cases: (label, (B, S, H, P, G, N, chunk), timing repeats).
+# K6's cases: (label, (B, S, H, P, G, N, chunk), timing repeats, type of x, B
+# and C).  bf16 first, as a bf16 model hands them over (views of one xBC
+# tensor); the first is the path's row.  Then the same shapes in f32.
 K6_CASES = [
-    ("zamba2 path", (LM_BATCH, LM_PROMPT, 64, 64, 1, 64, 128), 20),
-    ("mamba2-780m", (LM_BATCH, LM_PROMPT, 48, 64, 1, 128, 128), 20),
+    ("zamba2 path", (LM_BATCH, LM_PROMPT, 64, 64, 1, 64, 128), 20, "bfloat16"),
+    ("mamba2-780m", (LM_BATCH, LM_PROMPT, 48, 64, 1, 128, 128), 20, "bfloat16"),
+    ("zamba2 path f32", (LM_BATCH, LM_PROMPT, 64, 64, 1, 64, 128), 20, "float32"),
+    ("mamba2-780m f32", (LM_BATCH, LM_PROMPT, 48, 64, 1, 128, 128), 20, "float32"),
 ]
 SDPA_RTOL = 2.0 ** -5   # SDPA rounds P to bf16 before P·V; the reference keeps it f32
 
@@ -253,16 +259,30 @@ def k5_cost(b, h, kvh, s, d, elem_bytes, pairs):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k6_cost(b, s, h, p, g, n, q):
-    """Bytes: x, dt, B, C, a, D read once, y and the final state written
-    once, f32.  Flops per chunk and head on its lower triangle of Q(Q+1)/2
-    pairs: C·B (2N a pair), scores·(dt x) (2P a pair), C·h and the state
-    update (2QNP each), at the f32 rate."""
-    bytes_moved = 4.0 * (2 * b * s * h * p + b * s * h + 2 * b * s * g * n + 2 * h
-                         + b * h * n * p)
+def k6_cost(b, s, h, p, g, n, q, elem_bytes):
+    """Bytes: x, B and C read once in their type (``elem_bytes``), dt, a and D
+    in f32, y and the final state written once in f32.  Operations on each
+    chunk's lower triangle of Q(Q+1)/2 pairs: C·Bᵀ once per (b, chunk,
+    group), 2N flops a pair (it does not depend on the head); per head
+    scores·(dt x), 2P a pair, and C·h and the state update, 2QNP each.  bf16:
+    on the tensor cores at the dense bf16 rate, C·Bᵀ as one product (bf16
+    values, exact in f32) and the other three as two each (their f32 factor
+    as hi + lo, the least way to the reference's f32 numerics).  f32: at the
+    f32 rate (no TF32).  Exps at the SFU rate: the gate a pair, w and
+    exp(la) a position.  The units run side by side: the longest counts."""
+    heads = float(b * h * (s // q))
     tri = q * (q + 1) // 2
-    flops = float(b * h * (s // q)) * (2 * n * tri + 2 * p * tri + 4 * q * n * p)
-    return bound(bytes_moved, flops)
+    bytes_moved = (elem_bytes * (b * s * h * p + 2.0 * b * s * g * n)
+                   + 4.0 * (b * s * h + 2 * h + b * s * h * p + b * h * n * p))
+    cb = 2.0 * n * tri * b * (s // q) * g
+    per_head = 2.0 * p * tri + 4.0 * q * n * p
+    if elem_bytes == 2:
+        t_prod = (cb + 2 * per_head * heads) / BF16_TC_FLOP_PER_S
+    else:
+        t_prod = (cb + per_head * heads) / F32_FLOP_PER_S
+    t_ops = max(t_prod, heads * (tri + 2 * q) / SFU_PER_S) * 1e3
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def lm_phases(torch, dev):
@@ -342,18 +362,44 @@ def lm_phases(torch, dev):
                 q, k, v, attn_mask=m, enable_gqa=True)
         k5_rows.append(k5_case(label, b, h, kvh, s, d, torch.bfloat16, reps, sdpa=fn, **opts))
 
-    # ---- K6 at the path's shape and mamba2-780m's ----------------------- #
-    def ssd_inputs(b, s, h, p, g, n, seed):
+    # ---- K6 at the path's shape and mamba2-780m's, bf16 and f32 ---------- #
+    def ssd_inputs(b, s, h, p, g, n, seed, dtype):
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return (torch.randn((b, s, h, p), device=dev, generator=gen),
-                torch.rand((b, s, h), device=dev, generator=gen) * 0.1 + 0.001,
-                -torch.linspace(1.0, 16.0, h, device=dev),
-                torch.randn((b, s, g, n), device=dev, generator=gen) * 0.3,
-                torch.randn((b, s, g, n), device=dev, generator=gen) * 0.3,
+        x = torch.randn((b, s, h, p), device=dev, generator=gen)
+        dt = torch.rand((b, s, h), device=dev, generator=gen) * 0.1 + 0.001
+        bm = torch.randn((b, s, g, n), device=dev, generator=gen) * 0.3
+        cm = torch.randn((b, s, g, n), device=dev, generator=gen) * 0.3
+        if dtype == "bfloat16":
+            # the same values rounded to bf16, as views of one (B, S, HP + 2GN)
+            # tensor: the slices of xBC that a bf16 model hands over
+            xbc = torch.cat([x.reshape(b, s, h * p), bm.reshape(b, s, g * n),
+                             cm.reshape(b, s, g * n)], dim=-1).to(torch.bfloat16)
+            xv, bv, cv = torch.split(xbc, [h * p, g * n, g * n], dim=-1)
+            x, bm, cm = (xv.reshape(b, s, h, p), bv.reshape(b, s, g, n),
+                         cv.reshape(b, s, g, n))
+        return (x, dt, -torch.linspace(1.0, 16.0, h, device=dev), bm, cm,
                 torch.ones(h, device=dev))
 
-    def k6_case(label, b, s, h, p, g, n, q, reps):
-        args = ssd_inputs(b, s, h, p, g, n, 50)
+    def k6_passes(fn, reps=5):
+        """Device ms of each of K6's three CUDA kernels in one call
+        (torch.profiler, mean over ``reps`` calls after a warm-up)."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for ev in prof.key_averages():
+            for name in ("state", "pass", "scan"):
+                if f"ssd_chunk_{name}_kernel" in ev.key:
+                    out[name] = ev.device_time_total / ev.count / 1e3
+        check(len(out) == 3, f"K6: the profile shows {sorted(out)}, not its three passes")
+        return out
+
+    def k6_case(label, b, s, h, p, g, n, q, reps, dtype):
+        args = ssd_inputs(b, s, h, p, g, n, 50, dtype)
         y, hf = ssd_ops.ssd_forward(*args, chunk=q, return_state=True)
         y_ref, h_ref = ssd_ref.ssd_chunked_ref(*args, q)
         (ey, sy), (eh, sh) = errs(y, y_ref), errs(hf, h_ref)
@@ -362,16 +408,23 @@ def lm_phases(torch, dev):
         ms = time_ms(torch, lambda: ssd_ops.ssd_forward(*args, chunk=q, return_state=True),
                      reps)
         plain = time_ms(torch, lambda: ssd_ref.ssd_chunked_ref(*args, q), 3)
-        bms, by = k6_cost(b, s, h, p, g, n, q)
-        print(f"[kernels] K6 ssd_chunk {label} x ({b},{s},{h},{p}) B/C G={g} N={n} chunk {q}: "
-              f"max_abs_err y and state {err:.3e}, relative {rel:.3e} (tol {K6_RTOL:g}), "
-              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), smem "
-              f"{ssd_kern.smem_bytes(q, p, n)} B/block")
+        passes = k6_passes(lambda: ssd_ops.ssd_forward(*args, chunk=q, return_state=True))
+        elem = args[0].element_size()
+        bms, by = k6_cost(b, s, h, p, g, n, q, elem)
+        ht = ssd_kern.head_tile(b, s // q, h, g)
+        plan = ssd_kern.smem_plan(q, p, n, elem, ht)
+        print(f"[kernels] K6 ssd_chunk {label} x ({b},{s},{h},{p}) B/C G={g} N={n} chunk {q} "
+              f"{dtype}: max_abs_err y and state {err:.3e}, relative {rel:.3e} (tol "
+              f"{K6_RTOL:g}), kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms "
+              f"({by}); passes state/pass/scan "
+              f"{'/'.join(f'{passes[k]:.4f}' for k in ('state', 'pass', 'scan'))} ms; head "
+              f"tile {ht}, smem B/block state {plan.state_bytes} ({plan.stages_state} stages) "
+              f"scan {plan.scan_bytes} ({plan.stages_scan})")
         check(rel <= K6_RTOL, f"K6 {label} disagrees with its plain version: {rel}")
-        return dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                    bound_by=by, library_ms=None)
+        return dict(shape=f"{label} ({dtype})", max_abs_err=err, ms=ms, plain_ms=plain,
+                    bound_ms=bms, bound_by=by, library_ms=None, passes_ms=passes)
 
-    k6_rows = [k6_case(label, *shape, reps) for label, shape, reps in K6_CASES]
+    k6_rows = [k6_case(label, *shape, reps, dtype) for label, shape, reps, dtype in K6_CASES]
     torch.cuda.empty_cache()
 
     # ---- [lm-small]: full width, 6 layers, the card against the CPU ------ #
@@ -458,6 +511,7 @@ def lm_phases(torch, dev):
     for args, kw, out in rec["flash_attention_cuda"]:
         err, scale = errs(out, attn_ref.attention_ref(*args, **kw))
         worst5, abs5 = max(worst5, err / scale), max(abs5, err)
+    k6_types = sorted({str(args[0].dtype) for args, _, _ in rec["ssd_chunk_cuda"]})
     for args, kw, out in rec["ssd_chunk_cuda"]:
         x, dt, a, b_mat, c_mat, d_vec, chunk, _ = args
         y_ref, h_ref = ssd_ref.ssd_chunked_ref(x, dt, a, b_mat, c_mat, d_vec, chunk)
@@ -466,8 +520,9 @@ def lm_phases(torch, dev):
             worst6, abs6 = max(worst6, err / scale), max(abs6, err)
     print(f"[check lm] K5: {len(rec['flash_attention_cuda'])} launches of the path against "
           f"the plain version, max_abs_err {abs5:.3e}, relative {worst5:.3e} (tol "
-          f"{K5_BF16_RTOL:g}); K6: {len(rec['ssd_chunk_cuda'])} launches, y and final state "
-          f"max_abs_err {abs6:.3e}, relative {worst6:.3e} (tol {K6_RTOL:g})")
+          f"{K5_BF16_RTOL:g}); K6: {len(rec['ssd_chunk_cuda'])} launches (x, B, C {k6_types}), "
+          f"y and final state max_abs_err {abs6:.3e}, relative {worst6:.3e} (tol {K6_RTOL:g})")
+    check(k6_types == ["torch.bfloat16"], f"check lm: K6 took {k6_types}, not the model's bf16")
     check(len(rec["flash_attention_cuda"]) == napp and len(rec["ssd_chunk_cuda"]) == cfg.n_layers,
           "check lm: the recorded launches are not the path's")
     check(worst5 <= K5_BF16_RTOL, f"check lm: K5 disagrees on the path's inputs: {worst5}")

@@ -1,38 +1,119 @@
-"""Launcher of ``csrc/ssd_chunk.cu`` (CUDA tensors only)."""
+"""Launcher of ``csrc/ssd_chunk.cu`` (CUDA tensors only).
+
+One call runs the chunk-parallel scan as three CUDA kernels on the current
+stream (chunk states, state passing, chunk scan) and counts one launch of
+``ssd_chunk``.  The plan below (head tile, ring stages, shared memory) is
+plain Python, held by the CPU tests; the C launcher recomputes the same
+shared-memory sizes, which its ``ssd_chunk_smem`` reports to the card tests.
+"""
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
-RS = 32                  # rows of a score strip (csrc/ssd_chunk.cu)
-MAX_P = 128              # head dims up to 4 x 32 lanes
+MAX_P = 128              # head dims up to 4 column groups of 32
+MAX_Q = 128              # chunk lengths up to 8 row tiles of 16
+MAX_HT = 8               # heads a block of passes 1 and 3 walks (one warp scans each)
+NW = 8                   # warps a block of passes 1 and 3
 SMEM_LIMIT = 232_448     # shared memory one block may take on an H100
+SM_SMEM = 233_472        # shared memory of one SM (228 KB); the runtime keeps 1 KB a block
 _MAX_GRID_X = 2 ** 31 - 1
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 7 + [ctypes.c_void_p])
+SM_COUNT = 132           # streaming multiprocessors of an H100 SXM
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 19 + [ctypes.c_void_p]
 
 
-def smem_bytes(q: int, p: int, n: int) -> int:
-    """Shared memory of one block: x (Q, P), B (Q, N + 1), the state (N, P),
-    a C strip (RS, N), a score strip (RS, Q), and dt, its cumsum and the
-    state weights (3 Q), all f32."""
-    return 4 * (q * p + q * (n + 1) + n * p + RS * n + RS * q + 3 * q)
+class SmemPlan(NamedTuple):
+    stages_state: int    # ring stages of pass 1 (ssd_chunk_state_kernel)
+    state_bytes: int
+    stages_scan: int     # ring stages of pass 3 (ssd_chunk_scan_kernel)
+    scan_bytes: int
+
+
+def _r16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def blocks_per_sm(smem: int) -> int:
+    """Blocks of ``smem`` bytes that one SM's shared memory holds."""
+    return SM_SMEM // (smem + 1024)
+
+
+def smem_plan(q: int, p: int, n: int, elem_bytes: int, ht: int) -> SmemPlan:
+    """Shared memory of one block of passes 1 and 3, in bytes, with two ring
+    stages where they fit and one where they do not; pass 3 also takes one
+    where that puts twice the blocks on an SM (bf16 at N 64), since its
+    memory streams gain more from a second block than from a second stage.
+
+    Tiles pad Q, N and P to 16; a row is 8 bf16 (4 f32) longer.  Pass 1: B
+    (Q, N), dt and la/w of the ``ht`` heads (f32), and X (Q, P) per stage.
+    Pass 3: C (Q, N), G = C·Bᵀ as the lower-triangular 16 x 16 tiles (f32),
+    dt and la, for f32 one 16 x 20 S' scratch tile a warp, and a region that
+    holds B while G is built and then the stages, each X and h_in (bf16: hi
+    and lo; f32: one).
+    """
+    pad = 8 if elem_bytes == 2 else 4
+    q16, n16, p16 = _r16(q), _r16(n), _r16(p)
+    sn, sp, rt = n16 + pad, p16 + pad, q16 // 16
+    tile_n = q16 * sn * elem_bytes
+    tile_x = q16 * sp * elem_bytes
+    tile_h = (2 if elem_bytes == 2 else 1) * n16 * sp * elem_bytes
+    ladt = 2 * ht * q16 * 4
+    g = rt * (rt + 1) // 2 * 256 * 4
+    scratch = NW * 16 * 20 * 4 if elem_bytes == 4 else 0
+
+    def state(st):
+        return tile_n + ladt + st * tile_x
+
+    def scan(st):
+        return tile_n + g + ladt + scratch + max(tile_n, st * (tile_x + tile_h))
+
+    st1 = 2 if state(2) <= SMEM_LIMIT else 1
+    st3 = 2 if scan(2) <= SMEM_LIMIT else 1
+    if st3 == 2 and blocks_per_sm(scan(1)) > blocks_per_sm(scan(2)):
+        st3 = 1
+    return SmemPlan(st1, state(st1), st3, scan(st3))
+
+
+def head_tile(batch: int, chunks: int, heads: int, groups: int,
+              sms: int = SM_COUNT) -> int:
+    """Heads a block of passes 1 and 3 walks: the largest divisor of the heads
+    per group, at most ``MAX_HT``, that still gives two blocks for every SM
+    (C·Bᵀ is built once per block, so larger tiles share it more); 1 where
+    none does."""
+    hpg = heads // groups
+    for d in range(min(MAX_HT, hpg), 0, -1):
+        if hpg % d == 0 and batch * chunks * (heads // d) >= 2 * sms:
+            return d
+    return 1
+
+
+def _views_ok(t: torch.Tensor, per16: int) -> bool:
+    """Last dim contiguous, 16-byte aligned base and row strides."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st % per16 == 0 for st in t.stride()[:-1]))
 
 
 def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                    b_mat: torch.Tensor, c_mat: torch.Tensor, d_vec: torch.Tensor,
                    chunk: int, return_state: bool = False):
-    """x (B, S, H, P), dt (B, S, H), a (H,), b_mat/c_mat (B, S, G, N),
-    d_vec (H,), all f32 on one CUDA device.  Returns y (B, S, H, P) and, with
-    ``return_state``, the final states (B, H, N, P)."""
+    """x (B, S, H, P), b_mat/c_mat (B, S, G, N), all f32 or all bf16 (the
+    model's compute type, read in place: views with the last dimension
+    contiguous); dt (B, S, H), a (H,) and d_vec (H,) f32; one CUDA device.
+    Returns y (B, S, H, P) f32 and, with ``return_state``, the final states
+    (B, H, N, P) f32."""
     args = (x, dt, a, b_mat, c_mat, d_vec)
     if not all(t.is_cuda for t in args) or len({t.device for t in args}) != 1:
         raise ValueError("ssd_chunk_cuda needs every input on one CUDA device")
-    if any(t.dtype != torch.float32 for t in args):
-        raise ValueError("ssd_chunk_cuda takes f32 inputs, got "
-                         + "/".join(str(t.dtype) for t in args))
+    ops = (x, b_mat, c_mat)
+    if len({t.dtype for t in ops}) != 1 or x.dtype not in (torch.float32, torch.bfloat16) \
+            or any(t.dtype != torch.float32 for t in (dt, a, d_vec)):
+        raise ValueError("ssd_chunk_cuda takes x, B and C all f32 or all bf16 and dt, a, D "
+                         "in f32, got " + "/".join(str(t.dtype) for t in args))
     if x.dim() != 4 or b_mat.dim() != 4 or b_mat.shape != c_mat.shape:
         raise ValueError(f"shapes {tuple(x.shape)}, {tuple(b_mat.shape)}, "
                          f"{tuple(c_mat.shape)} are not (B, S, H, P), (B, S, G, N) x2")
@@ -44,28 +125,57 @@ def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                          f"do not fit x {tuple(x.shape)} and B {tuple(b_mat.shape)}")
     if g == 0 or h % g:
         raise ValueError(f"{h} heads are not a multiple of {g} groups")
-    if chunk < 1 or s % chunk:
-        raise ValueError(f"sequence {s} is not a multiple of the chunk {chunk}")
-    if not 1 <= p <= MAX_P:
-        raise ValueError(f"head dim {p} outside the kernel's 1..{MAX_P}")
-    if smem_bytes(chunk, p, n) > SMEM_LIMIT:
-        raise ValueError(f"chunk {chunk}, P {p}, N {n} need {smem_bytes(chunk, p, n)} B "
-                         f"of shared memory, above {SMEM_LIMIT}")
-    if bsz * h > _MAX_GRID_X:
-        raise ValueError(f"B*H = {bsz * h} exceeds the launch grid")
-    if not all(t.is_contiguous() for t in args):
-        raise ValueError("ssd_chunk_cuda needs contiguous inputs")
-    y = torch.empty_like(x)
+    if not 1 <= chunk <= MAX_Q or s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of a chunk {chunk} in 1..{MAX_Q}")
+    if not 1 <= p <= MAX_P or n < 1:
+        raise ValueError(f"head dim {p} outside the kernel's 1..{MAX_P}, or state {n} < 1")
+    elem = x.element_size()
+    per16 = 16 // elem
+    nc = s // chunk
+    ht = head_tile(bsz, nc, h, g, torch.cuda.get_device_properties(x.device)
+                   .multi_processor_count)
+    if bsz * h * max(nc, n) > _MAX_GRID_X:
+        raise ValueError(f"B {bsz}, H {h}, {nc} chunks, N {n} exceed the launch grid")
+    plan = smem_plan(chunk, p, n, elem, ht)
+    if max(plan.state_bytes, plan.scan_bytes) > SMEM_LIMIT:
+        raise ValueError(f"chunk {chunk}, P {p}, N {n} need {plan} of shared memory, above "
+                         f"{SMEM_LIMIT} B")
+    y = torch.empty((bsz, s, h, p), dtype=torch.float32, device=x.device)
     h_fin = (torch.empty((bsz, h, n, p), dtype=torch.float32, device=x.device)
              if return_state else None)
     if x.numel() == 0:
+        if h_fin is not None:
+            h_fin.zero_()
         return (y, h_fin) if return_state else y
-    fn = _build.function("ssd_chunk", "ssd_chunk_f32", _ARGTYPES)
+    # 16-byte rows: P and N in whole 16-byte chunks, zero-padded where they
+    # are not (no model has such a width; the padded rows add nothing).
+    pp, nn = -(-p // per16) * per16, -(-n // per16) * per16
+    if pp != p:
+        x = F.pad(x, (0, pp - p))
+    if nn != n:
+        b_mat, c_mat = F.pad(b_mat, (0, nn - n)), F.pad(c_mat, (0, nn - n))
+    x, b_mat, c_mat = (t if _views_ok(t, per16) else t.contiguous() for t in (x, b_mat, c_mat))
+    dt, a, d_vec = dt.contiguous(), a.contiguous(), d_vec.contiguous()
+    y_k = y if pp == p else torch.empty((bsz, s, h, pp), dtype=torch.float32, device=x.device)
+    h_k = h_fin if nn == n and pp == p else (
+        torch.empty((bsz, h, nn, pp), dtype=torch.float32, device=x.device)
+        if return_state else None)
+    states = torch.empty((bsz, nc, h, nn, pp), dtype=torch.float32, device=x.device)
+    laq = torch.empty((bsz, nc, h), dtype=torch.float32, device=x.device)
+    symbol = "ssd_chunk_bf16" if elem == 2 else "ssd_chunk_f32"
+    fn = _build.function("ssd_chunk", symbol, _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
-                        c_mat.data_ptr(), d_vec.data_ptr(), y.data_ptr(),
-                        0 if h_fin is None else h_fin.data_ptr(),
-                        bsz, s, h, g, p, n, chunk, stream), "ssd_chunk")
+                        c_mat.data_ptr(), d_vec.data_ptr(), y_k.data_ptr(),
+                        0 if h_k is None else h_k.data_ptr(), states.data_ptr(),
+                        laq.data_ptr(), bsz, s, h, g, pp, nn, chunk, ht,
+                        plan.stages_state, plan.stages_scan, *x.stride()[:3],
+                        *b_mat.stride()[:3], *c_mat.stride()[:3], stream), "ssd_chunk")
     _build.launch_counts["ssd_chunk"] += 1
+    if y_k is not y:
+        y.copy_(y_k[..., :p])
+    if h_k is not None and h_k is not h_fin:
+        h_fin.copy_(h_k[:, :, :n, :p])
     return (y, h_fin) if return_state else y
+

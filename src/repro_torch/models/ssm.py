@@ -3,7 +3,8 @@
 Twin of ``repro.models.ssm``.  ``ssm_block`` runs the SSD chunk scan
 through ``kernels/ssd/ops.py`` in both of its branches: K6 on CUDA tensors
 (with the final state when the caller wants the decode cache), the plain
-``ssd_chunked_ref`` on CPU tensors.  ``ssm_decode_step`` is plain torch, as
+``ssd_chunked_ref`` on CPU tensors.  A bf16 model hands x, B and C over as
+its bf16 slices of xBC, unwidened.  ``ssm_decode_step`` is plain torch, as
 the reference's is.
 """
 from __future__ import annotations
@@ -70,9 +71,11 @@ def ssm_block(x: torch.Tensor, p: SSMParams, cfg, return_cache: bool = False):
 
     d_in = cfg.d_inner
     xs, b, c = torch.split(xbc, [d_in, g * n, g * n], dim=-1)
-    xs = xs.reshape(bsz, s, h, pdim).float().contiguous()
-    b = b.reshape(bsz, s, g, n).float().contiguous()
-    c = c.reshape(bsz, s, g, n).float().contiguous()
+    xs, b, c = xs.reshape(bsz, s, h, pdim), b.reshape(bsz, s, g, n), c.reshape(bsz, s, g, n)
+    if xs.dtype != torch.bfloat16:
+        # bf16 views go to the scan as they are (K6 reads them in place, the
+        # plain version widens them); other types are widened here.
+        xs, b, c = (t.float().contiguous() for t in (xs, b, c))
     dt = _softplus(dt.float() + p.dt_bias).contiguous()   # (B, S, H)
     a = -torch.exp(p.a_log.float())
     res = ssd_ops.ssd_forward(xs, dt, a, b, c, p.d_skip.float(),

@@ -8,6 +8,8 @@ with nvcc, from the repository root:
 This file imports torch and the port only, so it runs where jax is absent.
 Tolerances are those of ``chip_smoke.py``, with their reasons there.
 """
+import ctypes
+
 import pytest
 import torch
 
@@ -16,7 +18,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.admm_update import ops as aops, ref as aref
 from repro_torch.kernels.attention import kernel as attn_kern, ops as attn_ops
 from repro_torch.kernels.attention import ref as attn_ref
-from repro_torch.kernels.ssd import ops as ssd_ops, ref as ssd_ref
+from repro_torch.kernels.ssd import kernel as ssd_kern, ops as ssd_ops, ref as ssd_ref
 from repro_torch.kernels.compress import kernel as ckern, laplacian as lops, ref as cref
 from repro_torch.kernels.gaussian import ops as gops, ref as gref
 
@@ -283,3 +285,80 @@ def test_ssd_chunk_kernel_matches_plain(dev, b, s, h, p, g, n, chunk, state):
     if state:
         assert out[1].shape == (b, h, n, p)
         assert (out[1] - h_ref).abs().max().item() <= 1e-4 * max(1.0, h_ref.abs().max().item())
+
+
+K6_SHAPES = [
+    (1, 64, 2, 64, 1, 64, 64, True),         # one chunk
+    (2, 256, 4, 64, 2, 64, 128, True),       # two chunks, G = 2
+    (1, 384, 2, 64, 1, 128, 128, False),     # mamba2-780m's N = 128
+    (2, 96, 6, 40, 3, 16, 32, True),         # ragged P and N
+]
+
+
+def _ssd_bf16(dev, b, s, h, p, g, n, views):
+    """The f32 test's inputs with x, B and C rounded to bf16; with ``views``
+    as strided slices of one (B, S, HP + 2GN) tensor, as the model's xBC."""
+    gen = torch.Generator(device=dev).manual_seed(30)
+    x = torch.randn((b, s, h, p), device=dev, generator=gen)
+    dt = torch.rand((b, s, h), device=dev, generator=gen) * 0.1 + 0.01
+    a = -torch.rand((h,), device=dev, generator=gen) - 0.1
+    bm = torch.randn((b, s, g, n), device=dev, generator=gen) * 0.3
+    cm = torch.randn((b, s, g, n), device=dev, generator=gen) * 0.3
+    d = torch.randn((h,), device=dev, generator=gen) * 0.1
+    if views:
+        xbc = torch.cat([x.reshape(b, s, -1), bm.reshape(b, s, -1), cm.reshape(b, s, -1)],
+                        dim=-1).to(torch.bfloat16)
+        xv, bv, cv = torch.split(xbc, [h * p, g * n, g * n], dim=-1)
+        x, bm, cm = xv.reshape(b, s, h, p), bv.reshape(b, s, g, n), cv.reshape(b, s, g, n)
+        assert not x.is_contiguous()
+    else:
+        x, bm, cm = (t.to(torch.bfloat16) for t in (x, bm, cm))
+    return x, dt, a, bm, cm, d
+
+
+def _check_ssd(args, chunk, state, n, p):
+    before = _build.launch_counts["ssd_chunk"]
+    out = ssd_ops.ssd_forward(*args, chunk=chunk, return_state=state)
+    assert _build.launch_counts["ssd_chunk"] == before + 1
+    y_ref, h_ref = ssd_ref.ssd_chunked_ref(*args, chunk)
+    y = out[0] if state else out
+    assert y.dtype == torch.float32
+    assert (y - y_ref).abs().max().item() <= 1e-4 * max(1.0, y_ref.abs().max().item())
+    if state:
+        assert out[1].shape == (args[0].shape[0], args[0].shape[2], n, p)
+        assert (out[1] - h_ref).abs().max().item() <= 1e-4 * max(1.0, h_ref.abs().max().item())
+
+
+@pytest.mark.parametrize("views", [False, True], ids=["contiguous", "xbc-views"])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,state", K6_SHAPES)
+def test_ssd_chunk_bf16_tensor_cores_match_plain(dev, b, s, h, p, g, n, chunk, state, views):
+    """K6's bf16 entry (tensor cores, f32 factors split in two) against the
+    plain version on the same bf16 values widened: within 1e-4, as f32."""
+    _check_ssd(_ssd_bf16(dev, b, s, h, p, g, n, views), chunk, state, n, p)
+
+
+@pytest.mark.parametrize("s,p,n,chunk", [
+    (100, 64, 64, 50),     # a chunk that is no multiple of 16 (a short prompt)
+    (64, 20, 12, 32),      # P and N in no whole 16-byte rows: the wrapper pads them
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_ragged_chunk_and_widths(dev, dtype, s, p, n, chunk):
+    """Rows and keys past the chunk are zero-filled and masked; widths that
+    are no multiple of 16 bytes are zero-padded by the wrapper."""
+    args = _ssd_bf16(dev, 2, s, 4, p, 1, n, views=False)
+    args = tuple(t.to(dtype) if i in (0, 3, 4) else t for i, t in enumerate(args))
+    _check_ssd(args, chunk, True, n, p)
+
+
+def test_ssd_chunk_smem_plan_matches_the_launcher(dev):
+    """kernels/ssd/kernel.py::smem_plan against the C launcher's own sizes."""
+    fn = _build.function("ssd_chunk", "ssd_chunk_smem", [ctypes.c_int64] * 7 + [ctypes.c_void_p])
+    out = (ctypes.c_int64 * 2)()
+    for b, s, h, p, g, n, q, _ in K6_SHAPES + [(4, 1024, 64, 64, 1, 64, 128, True),
+                                              (4, 1024, 48, 64, 1, 128, 128, True)]:
+        for elem in (2, 4):
+            ht = ssd_kern.head_tile(b, s // q, h, g)
+            plan = ssd_kern.smem_plan(q, p, n, elem, ht)
+            assert fn(elem, q, p, n, ht, plan.stages_state, plan.stages_scan,
+                      ctypes.addressof(out)) == 0
+            assert (out[0], out[1]) == (plan.state_bytes, plan.scan_bytes)
