@@ -15,7 +15,10 @@ Phases, each printed on its own lines, none of them allowed to fail:
                  Kernel, plain and bound times in ms;
   4. small     — 2048-point engine runs on the card against the same runs on
                  the CPU (plain versions), for the three configurations
-                 below: bias and predictions agree;
+                 below: bias and predictions agree; then the tasks of the
+                 paths 9-12 at 2048 points (OVR and OVO on 4 classes, SVR,
+                 one-class, KRR), a binary run with bf16-stored factors, and
+                 spectral_embed(3) on circles;
   5. main      — HSSSVMEngine prepare / train(C=1) / predict on the
                  10^6-point blobs SVM, gaussian, fixed rank 32, leaf 256
                  (2^20 padded points, 12 levels); accuracy >= 0.93.  Then
@@ -38,7 +41,20 @@ Phases, each printed on its own lines, none of them allowed to fail:
                  scoring block;
   8. K3 path   — admm_svm_batched(use_fused_update=True) on the main path's
                  factorization against the unfused run; K3 launched 10 times;
-  9. kernels   — K5 (flash attention) against its plain version at the
+  9. multi     — 10^6 + 2048 points of 6-class multiclass_blobs (8 features,
+                 sep 3), gaussian h 1.5, crude, OVO: 15 pair problems on one
+                 factorization, train_grid over C 0.5 / 1 / 2 (warm-started),
+                 each model predicting; accuracy at C 1 within 0.02 of the
+                 JAX package's at the same configuration; [check multi] as
+                 [check main], and K1's scoring blocks times the 15-column
+                 coefficient block;
+ 10. svr       — 10^6 points of noisy_sine, ε-SVR (C 2, ε 0.1): R² floor;
+ 11. oneclass  — 10^6 points of blobs_with_outliers, ν 0.1, 30 iterations:
+                 balanced-accuracy floor;
+ 12. gp        — noisy_sine, task "gp" at λ 0.5 then 2 (one refactorization
+                 each, no ADMM), the log marginal, the 8 leading eigenpairs:
+                 the solves' backward error and the Ritz residuals bounded;
+ 13. kernels   — K5 (flash attention) against its plain version at the
                  zamba2 path's shape (4 x 32 x 1024 x 64 bf16, causal; SDPA
                  timed beside it), gemma2-9b's local layer (H16/KV8, D256,
                  window 4096 on S 8192, softcap 50), hubert-xlarge's D80
@@ -47,16 +63,16 @@ Phases, each printed on its own lines, none of them allowed to fail:
                  bf16 (x, B and C as views of one xBC tensor, as the model
                  hands them over) and f32, y and the final state.  Kernel,
                  plain and bound ms;
- 10. lm-small  — zamba2-1.2b at full width, 6 layers, f32: prefill of 256
+ 14. lm-small  — zamba2-1.2b at full width, 6 layers, f32: prefill of 256
                  tokens and 4 teacher-forced decode steps on the card against
                  the same model on the CPU; the logits agree;
- 11. lm        — the serving entry point (repro_torch.launch.serve) at
+ 15. lm        — the serving entry point (repro_torch.launch.serve) at
                  zamba2-1.2b's full width and depth, bf16, batch 4, prompt
                  1024, 32 generated tokens: prefill runs K5 6 times and K6 38
                  times, decode neither; then again after a warm-up prefill.
                  Then [check lm]: every K5 and K6 launch of the path run again
                  by the plain version on the path's own inputs;
- 12. summary   — one JSON line {"kernels": [...]}, then the last line
+ 16. summary   — one JSON line {"kernels": [...]}, then the last line
                  {"ok": true, "device": {...}}.
 Every path runs with the launch counts set to 0 just before it, and checks
 each count just after it against what the code implies; the launches of the
@@ -68,6 +84,7 @@ available or when the repro_torch package is not beside it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -87,6 +104,41 @@ H_LAP = 2.0
 # The accurate path: benchmarks/bench_svm.py's ADAPTIVE_CASES circles case
 # at paper scale (rtol 1e-4, cap 64, 64 + 128 proxies).
 ACC_FEATURES, ACC_GAP, H_ACC, MIN_ACCURACY_ACC = 2, 0.8, 1.5, 0.99
+
+# The task paths: benchmarks/bench_svm.py's 6-way MULTICLASS_CASES case and
+# its TASK_CASES (:290-291) at paper scale, all at the crude preset, leaf 256.
+MULTI_CLASSES, MULTI_SEP, H_MULTI, MULTI_CS = 6, 3.0, 1.5, (0.5, 1.0, 2.0)
+H_SVR, SVR_C, SVR_EPS = 1.0, 2.0, 0.1
+H_OC, OC_NU, OC_MAX_IT = 2.0, 0.1, 30
+H_GP, GP_LAMS = 1.0, (0.5, 2.0)
+# The JAX package's own values at the same 10^6-point configurations, on a
+# CPU (scripts/reference_quality.py; PERF.md §4): accuracy at C 1, R², and
+# balanced accuracy.  Each path's floor sits FLOOR_MARGIN below.
+REF_MULTI_ACC, REF_SVR_R2, REF_OC_BA = 0.8306, 0.9360, 0.8371
+FLOOR_MARGIN = 0.02
+# [gp]'s solve: with the crude preset K̃ + λI is indefinite at scale (its
+# compression error, ~1e-2 of |K| ~ 1.8e4 at 2^17 points, dwarfs λ), so
+# |(K̃ + λI)α − y| / |y| is no measure of the solve: on 2^17 points on a CPU
+# it reads 1.2 (the JAX package) and 27 (the port) at λ 0.5, 7.6 and 0.021
+# at λ 2 (scripts/reference_quality.py --impl jax|port).  The normwise
+# backward error |r| / ((θ_max + λ)|α| + |y|) is: on the card at 10^6
+# points it read 9.8e-6 at λ 0.5 and 1.7e-5 at λ 2, so about 10x the worst.
+# It cannot tell λ 0.5 from λ 2 at this scale (a solve at the wrong λ reads
+# |Δλ| / θ_max ~ 1e-5 with θ_max ~ 1.4e5), so [small]'s KRR rows hold the
+# card's per-λ factorizations against the CPU's at 2048 points.
+GP_BACKWARD_TOL = 2e-4
+# Ritz residuals |K̃v − θv| / |θ| of the 8 leading pairs: at most 1.1e-5
+# (the JAX package) and 1.5e-6 (the port) on the CPU at 2^17; 10x the worst.
+RITZ_RTOL = 1e-4
+# [small]'s task rows, the card against the CPU: scores and biases relative
+# to the largest |score| (f32 sums in other orders through 10-30 solves);
+# the bf16-stored row to one bf16 step moved through 10 solves (the bar of
+# tests/test_torch_adaptive.py against the f32 solve).
+SMALL_RTOL, SMALL_BF16_RTOL, SMALL_AGREE = 1e-3, 1e-2, 0.995
+# [check multi]: K1's scoring blocks times the coefficient block against the
+# plain block times the same block, of the largest score: block entries a
+# few f32 ulps apart (K1_ATOL at worst), through the same matmul.
+SCORE_RTOL = 1e-4
 
 HOLD_CYCLES = 100_000_000    # ~50 ms of spinning at the H100's ~2 GHz clock
 
@@ -113,6 +165,18 @@ K1_ATOL = 2e-5     # K in [0, 1]; f32 norm/cross sums in another order move sq
 # candidates are near-duplicates: ties are that much more frequent.
 K2_PIV_MATCH = 0.999
 K2_PIV_MATCH_F2 = 0.99
+# [svr] and [gp]: 10^6 points uniform on a 2-D square, so a leaf spans
+# ~0.1 at h 1 and its near block sits at 1 - O(1e-2), where the f32 norm expansion
+# |p|² + |c|² − 2p·c (the reference's formula, kept by K2 and its plain
+# version alike) errs by ~eps·|x|² an entry: more than the deflation's
+# error bars at the first steps.  On these paths each column's error bar
+# also holds its assembly error (verify.py, ``*_asm``).  The plain version
+# itself, against the f64 greedy pivots on the CPU, takes other live
+# pivots on 16 of 1953 such leaves, 3 beyond the deflation-only bars and 0
+# beyond the widened ones (scripts/k2_tie_rate.py --path svr; with the
+# squared distance taken directly, 4 and 0), so two f32 runs may differ on
+# twice its 0.82%: K2_PIV_MATCH_DENSE.
+K2_PIV_MATCH_DENSE = 0.98
 K2_R_ATOL = 1e-4   # R entries are O(sqrt(s)); f32 reorderings of k steps.
 K4_ATOL = 2e-5     # the same f32 L1 sums in the same order; exp's last bits.
 CDIST_COLS = 2 ** 15   # columns per torch.cdist call in K4's yardstick
@@ -288,8 +352,6 @@ def k6_cost(b, s, h, p, g, n, q, elem_bytes):
 def lm_phases(torch, dev):
     """[kernels] K5 and K6 against their plain versions, [lm-small], [lm] and
     [check lm].  Returns the kernels' summary entries and the path's counts."""
-    import dataclasses
-
     import numpy as np
     import torch.nn.functional as F
 
@@ -567,7 +629,10 @@ def main() -> int:
     from repro_torch.core.compression import CompressionParams
     from repro_torch.core.engine import HSSSVMEngine
     from repro_torch.core.hss import rank_mask
-    from repro_torch.core.kernelfn import DEFAULT_SCORE_BLOCK, KernelSpec
+    from repro_torch import convert
+    from repro_torch.core import factorization, krr as krr_mod
+    from repro_torch.core.kernelfn import DEFAULT_SCORE_BLOCK, KernelSpec, kernel_matvec_streamed
+    from repro_torch.core.tasks import oneclass_metrics as oc_metrics
     from repro_torch.data import synthetic
     from repro_torch.kernels import _build
     from repro_torch.kernels.admm_update import ops as aops, ref as aref
@@ -755,6 +820,140 @@ def main() -> int:
         check(dz <= 1e-3 and db <= 1e-3 and dscore <= 1e-3 and agree >= 0.998,
               f"the card and the CPU disagree on the small {label} engine run")
 
+    # The task rows (this slice): each a 2048-point engine on the card and on
+    # the CPU, compared on biases (or -ρ), scores, predictions and iteration
+    # counts; the spectral row on eigenvalues and the embedding.
+    def small_task(label, make, data, knob, rtol=SMALL_RTOL):
+        xtr_, ytr_, xte_, _ = data
+        out = {}
+        for where in ("cuda", "cpu"):
+            eng = make(where)
+            eng.prepare(xtr_, ytr_)
+            mdl, _ = eng.train(knob)
+            out[where] = (mdl.biases.cpu(), mdl.decision_function(xte_).cpu(),
+                          mdl.predict(xte_).cpu(), eng.report.iters_run)
+        (bk, sk, pk, ik), (bc, sc, pc, ic) = out["cuda"], out["cpu"]
+        scale = max(sc.abs().max().item(), 1e-30)
+        db, ds = (bk - bc).abs().max().item() / scale, (sk - sc).abs().max().item() / scale
+        # a regressor's predictions are its scores: "agree" within the tolerance
+        agree = float(((pk == pc) if not pk.is_floating_point()
+                       else (pk - pc).abs() <= rtol * scale).float().mean())
+        print(f"[small] {label} n=2048 card vs CPU: |dbias| {db:.3e}, |dscore| {ds:.3e} of the "
+              f"largest |score| {scale:.3g} (tol {rtol:g}), predictions agree {agree:.4f} (need "
+              f">= {SMALL_AGREE}), iters_run card {ik[:4]} cpu {ic[:4]}")
+        check(db <= rtol and ds <= rtol and agree >= SMALL_AGREE and ik == ic,
+              f"the card and the CPU disagree on the small {label} engine run")
+
+    mc_small = synthetic.train_test("multiclass_blobs", 2048, 512, seed=3, n_classes=4,
+                                    sep=MULTI_SEP)
+    sine_small = synthetic.train_test("noisy_sine", 2048, 512, seed=3, noise=0.1)
+    oc_small = synthetic.train_test("blobs_with_outliers", 2048, 512, seed=3,
+                                    outlier_frac=0.1)
+    oc_small = (oc_small[0], None, oc_small[2], oc_small[3])
+    eng_kw = dict(comp=crude, leaf_size=128, admm=ADMMParams(max_it=MAX_IT))
+    for strategy in ("ovr", "ovo"):
+        small_task(f"{strategy} 4 classes", lambda w, s_=strategy: HSSSVMEngine(
+            spec=KernelSpec(h=H_MULTI), strategy=s_, device=w, **eng_kw), mc_small, C)
+    small_task("svr", lambda w: HSSSVMEngine(spec=KernelSpec(h=H_SVR), task="svr", svr_c=SVR_C,
+                                             device=w, **eng_kw), sine_small, SVR_EPS)
+    small_task("oneclass", lambda w: HSSSVMEngine(
+        spec=KernelSpec(h=H_OC), comp=crude, leaf_size=128, admm=ADMMParams(max_it=OC_MAX_IT),
+        task="oneclass", device=w), oc_small, OC_NU)
+    # KRR at the fixed rank, where K̃ + λI is positive definite at λ 2 and 4
+    # (least eigenvalue 1.12 and 3.12, condition 239 and 87 on the CPU's
+    # build; at λ 0.5, and at the crude preset, it is indefinite).  (1) The
+    # card's own HSS: its per-λ factorizations (``_fac_for``: λ 2, 4, then 2
+    # again from the cache) and solves against the CPU's factorizations of
+    # that HSS at the same λ, the other λ's error printed beside to show the
+    # row tells them apart.  (2) The card's engine against the CPU's: the two
+    # builds may take different pivots on the 2-feature data's rounding
+    # ties, so α may move by cond(K̃ + λI) times the relative difference of
+    # the two K̃ (first order, x2 for the second order) plus the solves' own
+    # SMALL_RTOL; the card's K̃ must also be as close to the exact K as the
+    # CPU's (within 2x), so a wrong card build fails there.
+    krr_lams = (GP_LAMS[1], 2 * GP_LAMS[1], GP_LAMS[1])
+    keng = HSSSVMEngine(spec=KernelSpec(h=H_GP), comp=params, leaf_size=128, task="krr",
+                        device="cuda")
+    keng.prepare(sine_small[0], sine_small[1])
+    kmodels = keng.train_grid(krr_lams)
+    hss_cpu = convert.hss_from_numpy(device="cpu", **{
+        f.name: (tuple(t.cpu().numpy() for t in v) if isinstance(v, tuple)
+                 else v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+        for f in dataclasses.fields(keng.hss) for v in (getattr(keng.hss, f.name),)})
+    rhs, kmask = keng.problem_labels.T.cpu(), keng.problem_masks.T.cpu()
+    alpha_cpu = {lam: krr_mod.krr_solve(factorization.factorize(hss_cpu, lam), rhs) * kmask
+                 for lam in sorted(set(krr_lams))}
+    xst_k = torch.as_tensor(sine_small[2])
+    for lam, km in zip(krr_lams, kmodels):
+        a_card, a_ref = km.z_y.cpu(), alpha_cpu[lam]
+        other = alpha_cpu[krr_lams[1] if lam == krr_lams[0] else krr_lams[0]]
+        da = ((a_card - a_ref).abs().max() / a_ref.abs().max()).item()
+        dx = ((a_card - other).abs().max() / other.abs().max()).item()
+        s_cpu = kernel_matvec_streamed(keng.spec, xst_k, hss_cpu.x, a_ref)[:, 0]
+        dsk = ((km.decision_function(sine_small[2]).cpu() - s_cpu).abs().max()
+               / s_cpu.abs().max()).item()
+        print(f"[small] krr lambda {lam} n=2048, the card's HSS factorized and solved on the "
+              f"card and on the CPU: alpha rel err {da:.3e}, scores rel err {dsk:.3e} (tol "
+              f"{SMALL_RTOL:g}); against the CPU's solve at the other lambda {dx:.3e}; "
+              f"model beta {km.beta}")
+        check(da <= SMALL_RTOL and dsk <= SMALL_RTOL and km.beta == lam,
+              f"the card and the CPU disagree on the small krr solve at lambda {lam}")
+    # prepare's factorization at the paper's β, then one for each λ visited
+    check(keng.report.iters_run == (0,)
+          and sorted(keng._fac_cache) == sorted({keng.report.beta, *krr_lams}),
+          f"krr: iters_run {keng.report.iters_run}, factorizations {sorted(keng._fac_cache)}")
+    lam = krr_lams[0]
+    ceng = HSSSVMEngine(spec=KernelSpec(h=H_GP), comp=params, leaf_size=128, task="krr",
+                        device="cpu")
+    ceng.prepare(sine_small[0], sine_small[1])
+    cmodel, (calpha, _) = ceng.train(lam)
+    check(torch.equal(keng.hss.x.cpu(), ceng.hss.x), "krr: the two engines' trees differ")
+    eye = torch.eye(ceng.hss.n)
+    k_card = keng.hss.matmat(eye.to(dev)).cpu().double()
+    k_cpu = ceng.hss.matmat(eye).double()
+    x64 = ceng.hss.x.double()
+    k_exact = torch.exp(torch.cdist(x64, x64) ** 2 * (-0.5 / H_GP ** 2))
+    norm2 = lambda m: torch.linalg.matrix_norm(m, ord=2).item()  # noqa: E731
+    e_card, e_cpu = (norm2(k - k_exact) / norm2(k_exact) for k in (k_card, k_cpu))
+    sv = torch.linalg.svdvals(k_cpu + lam * torch.eye(ceng.hss.n, dtype=torch.float64))
+    cond = (sv[0] / sv[-1]).item()
+    dk = norm2(k_card - k_cpu) / sv[0].item()
+    tol_e = 2.0 * cond * dk + SMALL_RTOL
+    a_card, a_cpu = kmodels[0].z_y.cpu().double(), calpha.double()
+    da = ((a_card - a_cpu).norm() / a_cpu.norm()).item()
+    s_card = kmodels[0].decision_function(sine_small[2]).cpu()
+    s_cpu = cmodel.decision_function(sine_small[2])
+    scale = s_cpu.abs().max().item()
+    dsk = (s_card - s_cpu).abs().max().item() / scale
+    agree = float(((s_card - s_cpu).abs() <= tol_e * scale).float().mean())
+    print(f"[small] krr lambda {lam} n=2048, the card's engine against the CPU's: |K̃ - K|/|K| "
+          f"card {e_card:.3e}, cpu {e_cpu:.3e} (card need <= 2x cpu); |K̃_card - K̃_cpu| / "
+          f"|K̃_cpu + λI| {dk:.3e}, cond {cond:.1f}; alpha rel err {da:.3e} (tol 2 cond dK + "
+          f"{SMALL_RTOL:g} = {tol_e:.3e}); scores rel err {dsk:.3e}, within the tol {agree:.4f} "
+          f"(need >= {SMALL_AGREE})")
+    check(e_card <= 2.0 * e_cpu, "krr: the card's build is further from K than the CPU's")
+    check(da <= tol_e and agree >= SMALL_AGREE,
+          "the card's and the CPU's krr engines disagree beyond their builds' difference")
+    del keng, kmodels, hss_cpu, ceng, cmodel, k_card, k_cpu, k_exact
+    small_task("binary, bf16-stored factors", lambda w: HSSSVMEngine(
+        spec=KernelSpec(h=H), comp=params, leaf_size=128, admm=ADMMParams(max_it=MAX_IT),
+        store_dtype="bfloat16", device=w), (xs, ys_, xst, yst), C, rtol=SMALL_BF16_RTOL)
+    circ_small = synthetic.train_test("circles", 2048, 0, seed=3, n_features=2)
+    v0 = torch.randn(2048, generator=torch.Generator().manual_seed(0))
+    emb = {}
+    for where in ("cuda", "cpu"):
+        eng = HSSSVMEngine(spec=KernelSpec(h=0.25), device=where, **eng_kw)
+        eng.prepare(circ_small[0], circ_small[1])
+        evals, _ = eng.top_eigenpairs(3, v0=v0)
+        emb[where] = (evals.cpu(), eng.spectral_embed(3, v0=v0))
+    dev_ = (emb["cuda"][0] - emb["cpu"][0]).abs().max().item() / emb["cpu"][0].abs().max().item()
+    sgn = np.sign((emb["cuda"][1] * emb["cpu"][1]).sum(0))
+    demb = np.abs(emb["cuda"][1] * sgn - emb["cpu"][1]).max() / np.abs(emb["cpu"][1]).max()
+    print(f"[small] spectral_embed(3) circles h=0.25 n=2048 card vs CPU: eigenvalues "
+          f"{emb['cuda'][0].tolist()} rel err {dev_:.3e} (tol {SMALL_RTOL:g}), embedding rel "
+          f"err {demb:.3e} up to sign (tol 5e-3, tests/test_torch_krr.py's bar)")
+    check(dev_ <= SMALL_RTOL and demb <= 5e-3, "the card and the CPU disagree on spectral_embed")
+
     # ---- 5-7. the paths at paper scale, each with its check ----------- #
     launchers = ((gkern, "gaussian_block_cuda"), (lops, "laplacian_block_cuda"),
                  (ckern, "fused_assemble_id_cuda"))
@@ -857,11 +1056,12 @@ def main() -> int:
               f"against the plain version, max_abs_err {worst:.3e} (tol {tol:g}); "
               f"{skipped} pad-pad entries left out")
 
-    def compare_k2(tag, label, args, out, rtol, min_match, spec, pad_from):
+    def compare_k2(tag, label, args, out, rtol, min_match, spec, pad_from, asm=False):
         """K2's (piv, R) on one level against the plain version's on the
         same inputs: live-slot pivots and ranks, each mismatch a rounding tie
         that stays a greedy pivoted QR after it, R on the agreeing nodes'
-        live rows."""
+        live rows.  With ``asm`` a tie's error bars also hold each column's
+        f32 assembly error (verify.py; see K2_PIV_MATCH_DENSE)."""
         xc, xp, cm, k, h, kind = args
         piv, r = out
         pads = pad_pairs(xc, xp, spec, pad_from)
@@ -883,13 +1083,17 @@ def main() -> int:
               + f", not rounding ties {res['untied']} (worst gap {res['worst_gap']:.3g} of "
               f"the bound), off greedy past the divergence {res['off_greedy']} (worst step "
               f"{res['worst_step_gap']:.3g} of the bound; residual ratio to the plain "
-              f"skeleton's {res['worst_ratio']:.4g}), R max_abs_err {res['r_err']:.3e} "
-              f"(tol {K2_R_ATOL:g})")
+              f"skeleton's {res['worst_ratio']:.4g}); with the assembly error in the bars "
+              f"{res['untied_asm']} not ties (worst {res['worst_gap_asm']:.3g}), "
+              f"{res['off_greedy_asm']} off greedy (worst {res['worst_step_gap_asm']:.3g})"
+              + (" [held]" if asm else "")
+              + f"; R max_abs_err {res['r_err']:.3e} (tol {K2_R_ATOL:g})")
+        untied, off = ("untied_asm", "off_greedy_asm") if asm else ("untied", "off_greedy")
         check(min_match is None or 1 - res["mismatches"] / b >= min_match,
               f"K2 {tag} {label}: {res['mismatches']} of {b} nodes differ")
-        check(res["untied"] == 0, f"K2 {tag} {label}: {res['untied']} pivot mismatches "
+        check(res[untied] == 0, f"K2 {tag} {label}: {res[untied]} pivot mismatches "
               "beyond rounding ties")
-        check(res["off_greedy"] == 0, f"K2 {tag} {label}: {res['off_greedy']} nodes "
+        check(res[off] == 0, f"K2 {tag} {label}: {res[off]} nodes "
               "leave greedy pivoted QR past their divergence")
         check(res["r_err"] <= K2_R_ATOL, f"K2 {tag} {label}: R disagrees: {res['r_err']}")
         return res
@@ -940,27 +1144,39 @@ def main() -> int:
                     bound_by=by, cluster=c, threads_per_column=tpc, register_rows=rreg,
                     ms_by_cluster={str(cc): t for cc, t in sweep.items()}, **(extra or {}))
 
-    def check_path(tag, rec, spec, comp, min_match, plain_reps, pad_from):
-        """Hold every launch of the path against the plain version, then
-        time K2 at every level of the path (its leaf and level 1 beside the
-        plain version and at each cluster size) and print the build's sum."""
+    def check_launches(tag, rec, spec, comp, min_match, pad_from, asm=False):
+        """Hold every K1/K4 and K2 launch of the path against the plain
+        version on its own inputs (K2's leaf and level 1, and the build as a
+        whole, need ``min_match`` of their nodes' live pivots equal);
+        returns each level's comparison."""
         if spec.name == "laplacian":
             check_blocks(tag, rec["laplacian_block_cuda"], lops.laplacian_block_cuda,
                          cref.laplacian_block_ref, K4_ATOL, spec, pad_from)
         else:
             check_blocks(tag, rec["gaussian_block_cuda"], gkern.gaussian_block_cuda,
                          gref.gaussian_block_ref, K1_ATOL, spec, pad_from)
+        results = [compare_k2(tag, "leaf" if lvl == 0 else f"level {lvl}", args, out,
+                              comp.rtol, min_match if lvl <= 1 else None, spec, pad_from,
+                              asm)
+                   for lvl, (args, out) in enumerate(rec["fused_assemble_id_cuda"])]
+        total = sum(r["nodes"] for r in results)
+        mism = sum(r["mismatches"] for r in results)
+        print(f"[check {tag}] K2 over the path's {len(results)} levels: {mism}/{total} nodes "
+              f"differ on live pivots (need >= {min_match:.1%} equal)")
+        check(1 - mism / total >= min_match, f"K2 {tag}: {mism} of {total} nodes differ")
+        return results
+
+    def check_path(tag, rec, spec, comp, min_match, plain_reps, pad_from):
+        """Hold every launch of the path against the plain version, then
+        time K2 at every level of the path (its leaf and level 1 beside the
+        plain version and at each cluster size) and print the build's sum."""
+        results = check_launches(tag, rec, spec, comp, min_match, pad_from)
         levels = rec["fused_assemble_id_cuda"]
-        total = mism = 0
         rows = []
         sum_ms = sum_bound = 0.0
         plans = []
-        for lvl, (args, out) in enumerate(levels):
+        for lvl, ((args, _), res) in enumerate(zip(levels, results)):
             label = "leaf" if lvl == 0 else f"level {lvl}"
-            res = compare_k2(tag, label, args, out, comp.rtol,
-                             min_match if lvl <= 1 else None, spec, pad_from)
-            total += res["nodes"]
-            mism += res["mismatches"]
             xc, xp, _, k, _, kind = args
             plans.append(k2_plan(args)[0])
             if lvl <= 1:
@@ -980,12 +1196,9 @@ def main() -> int:
             sum_ms += ms
             sum_bound += bound(*k2_cost(xc.shape[0], xc.shape[1], xp.shape[1], xc.shape[2],
                                         k, kind))[0]
-        print(f"[check {tag}] K2 over the path's {len(levels)} levels: {mism}/{total} nodes "
-              f"differ on live pivots (need >= {min_match:.1%} equal)")
         print(f"[kernels] K2 {tag} build: {len(levels)} launches, kernel {sum_ms:.4f} ms, "
               f"bound {sum_bound:.4f} ms, gap {sum_ms - sum_bound:.4f} ms; cluster C by "
               f"level {plans}")
-        check(1 - mism / total >= min_match, f"K2 {tag}: {mism} of {total} nodes differ")
         k2_builds[tag] = dict(launches=len(levels), ms=sum_ms, bound_ms=sum_bound,
                               clusters=plans)
         return rows
@@ -1076,12 +1289,202 @@ def main() -> int:
     want3["zmu_update"] = MAX_IT
     check(k3_counts == want3, f"K3 path launches {k3_counts}, expected {want3}")
 
-    # ---- 9-12. the LM serving path ------------------------------------ #
+    # ---- 9-12. the task paths at paper scale (this slice) -------------- #
+    def counted_run(tag, fn):
+        """Zero the counts, run ``fn`` (the path: prepare, train, predict)
+        with every K1/K4/K2 launch recorded, and read the counts after it."""
+        torch.cuda.reset_peak_memory_stats()
+        with recording() as rec:
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(_build.launch_counts)
+        return out, counts, rec, wall, torch.cuda.max_memory_allocated() / 1e9
+
+    def expect_launches(tag, counts, rep, scoring_blocks):
+        """K1 once for the leaf D, once per level's couplings, once per
+        scoring block; K2 once per level; nothing else."""
+        want = {name: 0 for name in counts}
+        want["gaussian_block"] = 1 + rep.hss_levels + scoring_blocks
+        want["fused_assemble_id"] = rep.hss_levels
+        check(counts == want, f"{tag}: launches {counts}, expected {want}")
+
+    def report_line(tag, eng, rep, wall, peak, extra=""):
+        print(f"[{tag}] task={eng.task} kernel={eng.spec.name} h={eng.spec.h} rtol={eng.comp.rtol} "
+              f"padded={eng.hss.n} levels={rep.hss_levels} beta={rep.beta:g}: compression_s "
+              f"{rep.compression_s:.3f}, factorization_s {rep.factorization_s:.3f}, admm_s "
+              f"{rep.admm_s:.3f}, {extra}path_s {wall:.3f}, memory_mb {rep.memory_mb:.1f}, "
+              f"peak_device_gb {peak:.2f}; ranks_post {list(rep.ranks_post)}, rank_sum "
+              f"{rep.rank_sum_pre} -> {rep.rank_sum_post}")
+
+    n_blocks = -(-N_TEST // DEFAULT_SCORE_BLOCK)
+
+    # [multi]: 6-class OVO (15 pair problems on one factorization), C grid
+    mdata = synthetic.train_test("multiclass_blobs", N_TRAIN, N_TEST, seed=0,
+                                 n_classes=MULTI_CLASSES, sep=MULTI_SEP)
+    multi_spec = KernelSpec(h=H_MULTI)
+    multi = HSSSVMEngine(spec=multi_spec, comp=crude, leaf_size=LEAF,
+                         admm=ADMMParams(max_it=MAX_IT), strategy="ovo", device="cuda")
+
+    def run_multi():
+        rep_ = multi.prepare(mdata[0], mdata[1])
+        models_ = multi.train_grid(MULTI_CS)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        preds_ = [m.predict(mdata[2]).cpu().numpy() for m in models_]
+        return rep_, models_, preds_, time.perf_counter() - t1
+
+    (rep_m, models_m, preds_m, pred_s), multi_counts, rec, wall, peak = counted_run(
+        "multi", run_multi)
+    accs = {c: float(np.mean(p == mdata[3])) for c, p in zip(MULTI_CS, preds_m)}
+    report_line("multi", multi, rep_m, wall, peak,
+                f"predict_s {pred_s:.3f} ({len(MULTI_CS)} models), ")
+    floor_m = REF_MULTI_ACC - FLOOR_MARGIN
+    print(f"[multi] {MULTI_CLASSES} classes, ovo: {multi.n_problems} pair problems, "
+          f"accuracy by C {json.dumps(accs)} (need >= {floor_m:.4f} at C {C}: the JAX "
+          f"package's {REF_MULTI_ACC} less {FLOOR_MARGIN}); iters_run "
+          f"{multi.report.iters_run}; launches {json.dumps(multi_counts)}")
+    check(multi.n_problems == MULTI_CLASSES * (MULTI_CLASSES - 1) // 2,
+          f"multi: {multi.n_problems} problems")
+    check(all(bool(torch.isfinite(m.z_y).all() & torch.isfinite(m.biases).all())
+              for m in models_m), "multi: non-finite duals or biases")
+    check(all(np.isin(p, np.arange(MULTI_CLASSES)).all() and p.shape == (N_TEST,)
+              for p in preds_m), "multi: predictions are not class labels of the test size")
+    check(accs[C] >= floor_m, f"multi: accuracy {accs[C]} below {floor_m}")
+    expect_launches("multi", multi_counts, rep_m, len(MULTI_CS) * n_blocks)
+    mpad_from = float(mdata[0][:, 0].max())
+    check_path("multi", rec, multi_spec, crude, K2_PIV_MATCH, 2, mpad_from)
+    # K1's scoring blocks times the (2^20, 15) coefficient block of each model
+    worst_s = 0.0
+    for m, (args, _) in zip(models_m, rec["gaussian_block_cuda"][-len(models_m):]):
+        ref_s = gref.gaussian_block_ref(*args) @ m.z_y
+        worst_s = max(worst_s, ((gkern.gaussian_block_cuda(*args) @ m.z_y - ref_s).abs().max()
+                                / ref_s.abs().max()).item())
+    print(f"[check multi] K1 scoring blocks x the ({multi.hss.n}, {multi.n_problems}) "
+          f"coefficient block, {len(models_m)} models: max rel err {worst_s:.3e} of the largest "
+          f"score (tol {SCORE_RTOL:g})")
+    check(worst_s <= SCORE_RTOL, f"check multi: scores disagree: {worst_s}")
+    del multi, models_m, rec, mdata
+    torch.cuda.empty_cache()
+
+    # [svr]: ε-SVR on noisy_sine
+    sdata = synthetic.train_test("noisy_sine", N_TRAIN, N_TEST, seed=0, noise=0.1)
+    svr = HSSSVMEngine(spec=KernelSpec(h=H_SVR), comp=crude, leaf_size=LEAF,
+                       admm=ADMMParams(max_it=MAX_IT), task="svr", svr_c=SVR_C, device="cuda")
+
+    def run_svr():
+        rep_ = svr.prepare(sdata[0], sdata[1])
+        model_, (z_, _) = svr.train(SVR_EPS)
+        return rep_, model_, z_, model_.predict(sdata[2]).cpu().numpy()
+
+    (rep_s, model_s, z_s, pred_sv), svr_counts, rec, wall, peak = counted_run("svr", run_svr)
+    rmse = float(np.sqrt(np.mean((pred_sv - sdata[3]) ** 2)))
+    r2 = 1.0 - rmse ** 2 / float(np.var(sdata[3]))
+    real_s = svr.problem_masks[0] > 0
+    nz = float((z_s[:, 0][real_s].abs() > 0).float().mean())
+    floor_s = REF_SVR_R2 - FLOOR_MARGIN
+    report_line("svr", svr, rep_s, wall, peak)
+    print(f"[svr] svr_c {SVR_C} epsilon {SVR_EPS}: R2 {r2:.4f} (need >= {floor_s:.4f}: the JAX "
+          f"package's {REF_SVR_R2} less {FLOOR_MARGIN}), rmse {rmse:.4f}, nonzero duals "
+          f"{nz:.4f} of the real points; launches {json.dumps(svr_counts)}")
+    check(np.isfinite(pred_sv).all() and bool(torch.isfinite(z_s).all()),
+          "svr: non-finite predictions or duals")
+    check(r2 >= floor_s, f"svr: R2 {r2} below {floor_s}")
+    expect_launches("svr", svr_counts, rep_s, n_blocks)
+    # every K1 and K2 launch of the path replayed (dense 2-feature data:
+    # see K2_PIV_MATCH_DENSE)
+    check_launches("svr", rec, svr.spec, crude, K2_PIV_MATCH_DENSE,
+                   float(sdata[0][:, 0].max()), asm=True)
+    del svr, model_s, z_s, real_s, rec
+    torch.cuda.empty_cache()
+
+    # [oneclass]: ν one-class SVM on blobs with 10% outliers
+    odata = synthetic.train_test("blobs_with_outliers", N_TRAIN, N_TEST, seed=0,
+                                 outlier_frac=0.1)
+    onec = HSSSVMEngine(spec=KernelSpec(h=H_OC), comp=crude, leaf_size=LEAF,
+                        admm=ADMMParams(max_it=OC_MAX_IT), task="oneclass", device="cuda")
+
+    def run_oc():
+        rep_ = onec.prepare(odata[0])
+        model_, _ = onec.train(OC_NU)
+        return rep_, model_, model_.predict(odata[2]).cpu().numpy()
+
+    (rep_o, model_o, pred_o), oc_counts, rec, wall, peak = counted_run("oneclass", run_oc)
+    met = oc_metrics(pred_o, odata[3])
+    floor_o = REF_OC_BA - FLOOR_MARGIN
+    report_line("oneclass", onec, rep_o, wall, peak)
+    print(f"[oneclass] nu {OC_NU}, {OC_MAX_IT} iterations: precision {met['precision']:.4f}, "
+          f"recall {met['recall']:.4f}, balanced accuracy {met['balanced_accuracy']:.4f} (need "
+          f">= {floor_o:.4f}: the JAX package's {REF_OC_BA} less {FLOOR_MARGIN}), rho "
+          f"{-model_o.biases.item():.6g}; launches {json.dumps(oc_counts)}")
+    check(np.isin(pred_o, (-1, 1)).all() and bool(torch.isfinite(model_o.z_y).all()),
+          "oneclass: predictions not ±1 or non-finite duals")
+    check(met["balanced_accuracy"] >= floor_o,
+          f"oneclass: balanced accuracy {met['balanced_accuracy']} below {floor_o}")
+    expect_launches("oneclass", oc_counts, rep_o, n_blocks)
+    # every K1 and K2 launch replayed (4 features: below 8, the 2-feature bar)
+    check_launches("oneclass", rec, onec.spec, crude, K2_PIV_MATCH_F2,
+                   float(odata[0][:, 0].max()))
+    del onec, model_o, odata, rec
+    torch.cuda.empty_cache()
+
+    # [gp]: GP posterior mean at two noise levels (one refactorization), the
+    # log marginal, the 8 leading eigenpairs
+    gp = HSSSVMEngine(spec=KernelSpec(h=H_GP), comp=crude, leaf_size=LEAF, task="gp",
+                      device="cuda")
+
+    def run_gp():
+        rep_ = gp.prepare(sdata[0], sdata[1])
+        out_ = []
+        for lam in GP_LAMS:
+            f0 = gp.report.factorization_s
+            model_, (alpha_, _) = gp.train(lam)
+            out_.append((lam, alpha_[:, 0], model_.predict(sdata[2]).cpu().numpy(),
+                         gp.report.factorization_s - f0, gp.report.iters_run))
+        lml_ = gp.log_marginal(GP_LAMS[0], n_probes=4, num_iters=20, seed=0)
+        return rep_, out_, lml_, gp.top_eigenpairs(8)
+
+    (rep_g, solves, lml, (evals, vecs)), gp_counts, rec, wall, peak = counted_run("gp", run_gp)
+    report_line("gp", gp, rep_g, wall, peak)
+    real_g = gp.problem_masks[0] > 0
+    y_g = gp.problem_labels[0]
+    ritz = ((gp.hss.matmat(vecs) - vecs * evals[None, :]).norm(dim=0) / evals.abs()).tolist()
+    for lam, alpha, pred_g, dfac, iters in solves:
+        r = (gp.hss.matvec(alpha) + lam * alpha - y_g)[real_g].norm()
+        rel = (r / y_g[real_g].norm()).item()
+        eta = (r / ((evals[0] + lam) * alpha.norm() + y_g[real_g].norm())).item()
+        rmse_g = float(np.sqrt(np.mean((pred_g - sdata[3]) ** 2)))
+        print(f"[gp] lambda {lam}: solve |r|/|y| {rel:.4g} (no bound: K̃ + λI is indefinite "
+              f"at the crude preset), backward error {eta:.3e} (tol {GP_BACKWARD_TOL:g}), R2 "
+              f"{1.0 - rmse_g ** 2 / float(np.var(sdata[3])):.4f} (no floor), rmse {rmse_g:.4f}, "
+              f"refactorization {dfac:.3f} s, iters_run {iters}")
+        check(bool(torch.isfinite(alpha).all()) and np.isfinite(pred_g).all(),
+              f"gp: non-finite solve or predictions at lambda {lam}")
+        check(iters == (0,), f"gp: iters_run {iters}, expected (0,)")
+        check(dfac > 0.0, f"gp: lambda {lam} did not refactorize")
+        check(eta <= GP_BACKWARD_TOL, f"gp: backward error {eta} at lambda {lam}")
+    print(f"[gp] log_marginal(lambda {GP_LAMS[0]}, 4 seeded probes, 20 Lanczos steps) "
+          f"{lml:.6g}; top 8 eigenvalues {[round(v, 3) for v in evals.tolist()]}, Ritz "
+          f"residuals |K̃v − θv|/|θ| {[f'{v:.2e}' for v in ritz]} (tol {RITZ_RTOL:g}); "
+          f"launches {json.dumps(gp_counts)}")
+    check(np.isfinite(lml) and bool(torch.isfinite(evals).all() & torch.isfinite(vecs).all()),
+          "gp: non-finite log marginal or eigenpairs")
+    check(max(ritz) <= RITZ_RTOL, f"gp: Ritz residuals {ritz}")
+    expect_launches("gp", gp_counts, rep_g, len(GP_LAMS) * n_blocks)
+    check_launches("gp", rec, gp.spec, crude, K2_PIV_MATCH_DENSE,
+                   float(sdata[0][:, 0].max()), asm=True)
+    del gp, vecs, sdata, rec
+    torch.cuda.empty_cache()
+
+    # ---- 13-15. the LM serving path ----------------------------------- #
     lm_kernels, lm_counts = lm_phases(torch, dev)
 
-    # ---- 13. summary -------------------------------------------------- #
+    # ---- 16. summary -------------------------------------------------- #
     by_path = {"main": main_counts, "lap": lap_counts, "accurate": acc_counts,
-               "k3-path": k3_counts, "lm": lm_counts}
+               "k3-path": k3_counts, "multi": multi_counts, "svr": svr_counts,
+               "oneclass": oc_counts, "gp": gp_counts, "lm": lm_counts}
 
     def entry(name, source, replaces, path, main_row, rows_all, **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -1104,6 +1507,8 @@ def main() -> int:
         entry("laplacian_block", "src/repro_torch/csrc/laplacian_block.cu",
               "src/repro/kernels/compress/laplacian.py:47", "lap", k4_rows[2], k4_rows),
     ] + lm_kernels
+    for e in lm_kernels:          # K5 and K6 on every path (0 off the LM path)
+        e["launches_by_path"] = {p: c[e["name"]] for p, c in by_path.items()}
     print(f"[summary] card {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -70,18 +70,23 @@ def engine_model_from_numpy(*, x_perm: np.ndarray, z_y: np.ndarray,
                             biases: np.ndarray, classes: np.ndarray, h: float,
                             kernel_name: str = "gaussian",
                             beta: float | None = None, c_value: float = 1.0,
+                            binary: bool | None = None, strategy: str = "ovr",
+                            task: str = "svm", pairs: np.ndarray | None = None,
                             device="cuda") -> EngineModel:
-    """A binary ``EngineModel`` of kernel ``kernel_name``; ``z_y`` is (d, 1)
-    or (d,)."""
+    """An ``EngineModel`` of kernel ``kernel_name``, any task: ``z_y`` is
+    (d, P) or (d,).  ``binary`` defaults to what the engine decides: an
+    "svm" model whose classes are exactly {-1, 1}."""
     classes = np.asarray(classes)
-    if classes.shape[0] != 2:
-        raise NotImplementedError("multiclass models are ROADMAP queue 1 item 7")
+    if binary is None:
+        binary = (task == "svm" and classes.shape[0] == 2
+                  and set(np.asarray(classes, np.float64).tolist()) == {-1.0, 1.0})
     z_y = np.asarray(z_y, np.float32).reshape(np.asarray(x_perm).shape[0], -1)
     return EngineModel(
         x_perm=_t(np.asarray(x_perm, np.float32), device), z_y=_t(z_y, device),
         biases=_t(np.asarray(biases, np.float32).reshape(-1), device),
         classes=classes, spec=KernelSpec(kernel_name, float(h)),
-        c_value=float(c_value),
+        c_value=float(c_value), binary=bool(binary), strategy=strategy, task=task,
+        pairs=None if pairs is None else np.asarray(pairs),
         beta=None if beta is None else float(beta))
 
 

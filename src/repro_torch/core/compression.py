@@ -192,7 +192,7 @@ def _host_leaf_near(
         x_f32 = np.asarray(x_perm, np.float32)
         kdt = cKDTree(x_f32)
         k_query = min(max(2 * params.n_near // m + 4, 4), tree.n)
-        _, nbr = kdt.query(x_f32, k=k_query)   # (n, k) incl. self
+        _, nbr = kdt.query(x_f32, k=k_query, workers=-1)   # (n, k) incl. self; all cores
         leaf_of = np.arange(tree.n) // m
         # Vectorized over all leaves: each leaf's candidate pool is its
         # points' neighbour lists, flattened.

@@ -198,6 +198,32 @@ def shrink_to_fit(hss: HSSMatrix, multiple: int = 1) -> HSSMatrix:
         transfers=tuple(transfers), skels=tuple(skels), b_mats=tuple(b_mats))
 
 
+def inert_pads(hss: HSSMatrix, real: torch.Tensor) -> HSSMatrix:
+    """K̃ with its pad block set to what it is in exact arithmetic: I.
+
+    Pads (``tree.pad_dataset``) sit 1e3·diam and more from every point and
+    from each other, so their kernel entries are 0 off the diagonal and 1 on
+    it.  In f32 the expanded squared distance of two pads ~1e7·diam out is
+    cancellation noise, and their Gaussian entry comes out anywhere in
+    [0, 1]: harmless under the SVM's β of 1e2–1e4, but under KRR/GP's λ of
+    ~1 it leaves K̃ + λI indefinite (the factorization's leaf Cholesky
+    fails; the reference's returns NaN).  Zeroes every pad-pad entry of the
+    leaf blocks D and the couplings B, then puts 1 on the pads' diagonal;
+    with few pads (no cancellation) it changes nothing.  ``real`` is the
+    (N,) real-point mask in tree order.
+    """
+    pad = ~real.to(torch.bool)
+    pl = pad.reshape(hss.n_leaves, hss.leaf_size)
+    d_leaf = (hss.d_leaf.masked_fill(pl[:, :, None] & pl[:, None, :], 0.0)
+              + torch.diag_embed(pl.to(hss.d_leaf.dtype)))
+    skels = (hss.skel_leaf, *hss.skels)       # level k's skeletons, k = 0..K-1
+    b_mats = []
+    for k, b in enumerate(hss.b_mats):        # the couplings of level k's sibling pairs
+        sp = pad[skels[k].long()].reshape(b.shape[0], 2, -1)
+        b_mats.append(b.masked_fill(sp[:, 0, :, None] & sp[:, 1, None, :], 0.0))
+    return dataclasses.replace(hss, d_leaf=d_leaf, b_mats=tuple(b_mats))
+
+
 def shrink_report(hss: HSSMatrix) -> tuple[HSSMatrix, dict]:
     """``shrink_to_fit`` plus the rank fields of ``FitReport``
     (ranks_pre/ranks_post/rank_sum_pre/rank_sum_post)."""

@@ -1,0 +1,101 @@
+"""Lanczos on the O(N r) HSS matvec: leading eigenpairs + spectral embedding.
+
+Counterpart of ``repro.core.lanczos``.  m Lanczos steps with full
+reorthogonalization give the leading eigenpairs of K̃ at O(m · N r)
+operator cost: the trained compression becomes a kernel-PCA / spectral
+feature extractor.  The JAX ``lax.scan`` over a fixed basis block is a
+Python loop over the same (m + 1, n) block here.  The start vector ``v0`` is
+an argument; without one a seeded ``torch.Generator`` draws it.
+
+Padded datasets (``tree.pad_dataset``): the pad block of K̃ is ≈ I, so pads
+contribute a cluster of eigenvalues ≈ 1; keep k below the number of data
+eigenvalues above 1, or read the embedding through
+``HSSSVMEngine.spectral_embed``, which drops pad rows.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+# Below this residual norm the Krylov space is exhausted (lucky breakdown):
+# the next basis vector is zeroed instead of amplifying float noise.
+_BREAKDOWN = 1e-30
+
+
+def lanczos(matvec: Callable[[torch.Tensor], torch.Tensor], v0: torch.Tensor,
+            num_iters: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``num_iters`` Lanczos steps with FULL reorthogonalization.
+
+    Returns ``(alphas (m,), betas (m,), basis (m+1, n))`` with the symmetric
+    tridiagonal T = diag(alphas) + offdiag(betas[:m-1]); ``betas[m-1]`` is
+    the final residual norm.  All in f32; each step runs a double
+    Gram-Schmidt against the whole stored basis (rows not yet written are
+    zero and contribute nothing).
+    """
+    n = v0.shape[0]
+    v0 = v0.float()
+    basis = torch.zeros((num_iters + 1, n), dtype=torch.float32, device=v0.device)
+    basis[0] = v0 / torch.linalg.vector_norm(v0)
+    alphas = torch.zeros(num_iters, dtype=torch.float32, device=v0.device)
+    betas = torch.zeros(num_iters, dtype=torch.float32, device=v0.device)
+    for i in range(num_iters):
+        v = basis[i]
+        w = matvec(v).float()
+        alphas[i] = v @ w
+        for _ in range(2):            # double Gram-Schmidt vs the full basis
+            w = w - basis.T @ (basis @ w)
+        b = torch.linalg.vector_norm(w)
+        basis[i + 1] = torch.where(b > _BREAKDOWN, w / torch.clamp(b, min=_BREAKDOWN),
+                                   torch.zeros_like(w))
+        betas[i] = b
+    return alphas, betas, basis
+
+
+def tridiag_eigh(alphas: torch.Tensor, offdiag: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """eigh of the (m, m) symmetric tridiagonal (ascending eigenvalues)."""
+    t = torch.diag(alphas) + torch.diag(offdiag, 1) + torch.diag(offdiag, -1)
+    return torch.linalg.eigh(t)
+
+
+def default_iters(n: int, k: int) -> int:
+    """Default Krylov depth: comfortably past k, capped by the problem size."""
+    return min(n, max(2 * k + 10, 3 * k))
+
+
+def start_vector(n: int, device, seed: int = 0) -> torch.Tensor:
+    """A standard-normal (n,) f32 start vector from a seeded generator."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(n, generator=gen, device=device)
+
+
+def top_eigenpairs(hss, k: int, num_iters: int | None = None,
+                   v0: torch.Tensor | None = None, seed: int = 0
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Leading k eigenpairs of K̃ via Lanczos on ``hss.matvec``.
+
+    Returns ``(eigenvalues (k,) descending, vectors (n, k))`` in the
+    permuted/padded row order of ``hss.x``.  ``v0`` (n,) starts the Krylov
+    space (moved to ``hss.x``'s device); without it ``start_vector(n,
+    seed=seed)`` does.
+    """
+    n = hss.n
+    m = num_iters if num_iters is not None else default_iters(n, k)
+    if not 0 < k <= m:
+        raise ValueError(f"need 0 < k <= num_iters, got k={k}, m={m}")
+    v0 = (start_vector(n, hss.x.device, seed) if v0 is None
+          else torch.as_tensor(v0, device=hss.x.device))
+    alphas, betas, basis = lanczos(hss.matvec, v0, m)
+    evals, evecs = tridiag_eigh(alphas, betas[:-1])
+    top = torch.argsort(evals, descending=True)[:k]
+    return evals[top], basis[:m].T @ evecs[:, top]
+
+
+def spectral_embed(hss, k: int, num_iters: int | None = None,
+                   v0: torch.Tensor | None = None, seed: int = 0
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel-PCA coordinates (n, k), eigenvectors scaled by √eigenvalue,
+    and the eigenvalues (k,), in permuted/padded row order."""
+    evals, vecs = top_eigenpairs(hss, k, num_iters=num_iters, v0=v0, seed=seed)
+    return vecs * torch.sqrt(torch.clamp(evals, min=0.0))[None, :], evals

@@ -1,10 +1,12 @@
 """Launcher of ``csrc/ssd_chunk.cu`` (CUDA tensors only).
 
-One call runs the chunk-parallel scan as three CUDA kernels on the current
-stream (chunk states, state passing, chunk scan) and counts one launch of
-``ssd_chunk``.  The plan below (head tile, ring stages, shared memory) is
-plain Python, held by the CPU tests; the C launcher recomputes the same
-shared-memory sizes, which its ``ssd_chunk_smem`` reports to the card tests.
+One launch runs the chunk-parallel scan as three CUDA kernels on the
+current stream (chunk states, state passing, chunk scan) and counts one
+launch of ``ssd_chunk``.  A call launches once per head-dim slice of at most
+``MAX_P`` columns, at a sub-chunk that fits one block (``split_plan``).  The
+plans below (split, head tile, ring stages, shared memory) are plain Python,
+held by the CPU tests; the C launcher recomputes the same shared-memory
+sizes, which its ``ssd_chunk_smem`` reports to the card tests.
 """
 from __future__ import annotations
 
@@ -98,6 +100,36 @@ def _views_ok(t: torch.Tensor, per16: int) -> bool:
             and all(st % per16 == 0 for st in t.stride()[:-1]))
 
 
+class SplitPlan(NamedTuple):
+    q: int                         # the chunk each launch runs
+    cols: tuple[tuple[int, int], ...]   # the head-dim slices [c0, c1), one launch each
+
+
+def split_plan(bsz: int, s: int, h: int, g: int, p: int, n: int, chunk: int,
+               elem_bytes: int, sms: int = SM_COUNT) -> SplitPlan:
+    """How ``ssd_chunk_cuda`` runs a shape beyond one launch's limits.
+
+    The scan's result does not depend on the chunk length (up to rounding),
+    and each column of y and of the state depends only on its own column of
+    x.  So a chunk above ``MAX_Q``, or one whose plan exceeds ``SMEM_LIMIT``,
+    runs at the largest divisor of ``chunk`` that fits both (it divides S
+    too), and a head dim above ``MAX_P`` runs as column slices of at most
+    ``MAX_P`` (starts at multiples of 128 keep each slice's rows 16-byte
+    aligned).  Raises ValueError where even a chunk of 1 does not fit (only
+    a very large state width N).
+    """
+    cols = tuple((c0, min(c0 + MAX_P, p)) for c0 in range(0, p, MAX_P))
+    pw = min(p, MAX_P)
+    for q in range(min(chunk, MAX_Q), 0, -1):
+        if chunk % q:
+            continue
+        plan = smem_plan(q, pw, n, elem_bytes, head_tile(bsz, s // q, h, g, sms))
+        if max(plan.state_bytes, plan.scan_bytes) <= SMEM_LIMIT:
+            return SplitPlan(q, cols)
+    raise ValueError(f"state width N {n} (P {pw}, {elem_bytes}-byte operands) needs "
+                     f"more than {SMEM_LIMIT} B of shared memory at every chunk")
+
+
 def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                    b_mat: torch.Tensor, c_mat: torch.Tensor, d_vec: torch.Tensor,
                    chunk: int, return_state: bool = False):
@@ -105,7 +137,8 @@ def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     model's compute type, read in place: views with the last dimension
     contiguous); dt (B, S, H), a (H,) and d_vec (H,) f32; one CUDA device.
     Returns y (B, S, H, P) f32 and, with ``return_state``, the final states
-    (B, H, N, P) f32."""
+    (B, H, N, P) f32.  Any chunk that divides S and any head dim run: the
+    launches follow ``split_plan``, one counted launch per column slice."""
     args = (x, dt, a, b_mat, c_mat, d_vec)
     if not all(t.is_cuda for t in args) or len({t.device for t in args}) != 1:
         raise ValueError("ssd_chunk_cuda needs every input on one CUDA device")
@@ -125,21 +158,32 @@ def ssd_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                          f"do not fit x {tuple(x.shape)} and B {tuple(b_mat.shape)}")
     if g == 0 or h % g:
         raise ValueError(f"{h} heads are not a multiple of {g} groups")
-    if not 1 <= chunk <= MAX_Q or s % chunk:
-        raise ValueError(f"sequence {s} is not a multiple of a chunk {chunk} in 1..{MAX_Q}")
-    if not 1 <= p <= MAX_P or n < 1:
-        raise ValueError(f"head dim {p} outside the kernel's 1..{MAX_P}, or state {n} < 1")
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of a chunk {chunk} >= 1")
+    if p < 1 or n < 1:
+        raise ValueError(f"head dim {p} or state {n} < 1")
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = split_plan(bsz, s, h, g, p, n, chunk, x.element_size(), sms)
+    if len(plan.cols) == 1:
+        return _launch(x, dt, a, b_mat, c_mat, d_vec, plan.q, return_state, sms)
+    outs = [_launch(x[..., c0:c1], dt, a, b_mat, c_mat, d_vec, plan.q, return_state, sms)
+            for c0, c1 in plan.cols]
+    if not return_state:
+        return torch.cat(outs, dim=-1)
+    return torch.cat([o[0] for o in outs], dim=-1), torch.cat([o[1] for o in outs], dim=-1)
+
+
+def _launch(x, dt, a, b_mat, c_mat, d_vec, chunk, return_state, sms):
+    """One counted launch of K6 on a shape ``split_plan`` admits."""
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
     elem = x.element_size()
     per16 = 16 // elem
     nc = s // chunk
-    ht = head_tile(bsz, nc, h, g, torch.cuda.get_device_properties(x.device)
-                   .multi_processor_count)
+    ht = head_tile(bsz, nc, h, g, sms)
     if bsz * h * max(nc, n) > _MAX_GRID_X:
         raise ValueError(f"B {bsz}, H {h}, {nc} chunks, N {n} exceed the launch grid")
     plan = smem_plan(chunk, p, n, elem, ht)
-    if max(plan.state_bytes, plan.scan_bytes) > SMEM_LIMIT:
-        raise ValueError(f"chunk {chunk}, P {p}, N {n} need {plan} of shared memory, above "
-                         f"{SMEM_LIMIT} B")
     y = torch.empty((bsz, s, h, p), dtype=torch.float32, device=x.device)
     h_fin = (torch.empty((bsz, h, n, p), dtype=torch.float32, device=x.device)
              if return_state else None)

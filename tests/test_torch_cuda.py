@@ -362,3 +362,68 @@ def test_ssd_chunk_smem_plan_matches_the_launcher(dev):
             assert fn(elem, q, p, n, ht, plan.stages_state, plan.stages_scan,
                       ctypes.addressof(out)) == 0
             assert (out[0], out[1]) == (plan.state_bytes, plan.scan_bytes)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,launches", [
+    (2, 512, 4, 64, 2, 64, 256, 1),      # chunk 256: run at 128
+    (1, 256, 2, 160, 1, 64, 128, 2),     # P 160: column slices 128 + 32
+    (1, 256, 2, 128, 1, 128, 128, 1),    # Q 128 P 128 N 128: f32 runs at chunk 64
+], ids=["chunk256", "p160", "q128-p128-n128"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_shapes_beyond_one_launch(dev, dtype, b, s, h, p, g, n, chunk, launches):
+    """Shapes one launch refuses (split_plan): sub-chunks and column slices,
+    each slice one counted launch, against the plain version at the
+    reference's own chunk (1e-4 of the largest value)."""
+    args = _ssd_bf16(dev, b, s, h, p, g, n, views=False)
+    args = tuple(t.to(dtype) if i in (0, 3, 4) else t for i, t in enumerate(args))
+    before = _build.launch_counts["ssd_chunk"]
+    y, hf = ssd_ops.ssd_forward(*args, chunk=chunk, return_state=True)
+    assert _build.launch_counts["ssd_chunk"] == before + launches
+    y_ref, h_ref = ssd_ref.ssd_chunked_ref(*args, chunk)
+    assert y.shape == y_ref.shape and hf.shape == (b, h, n, p)
+    assert (y - y_ref).abs().max().item() <= 1e-4 * max(1.0, y_ref.abs().max().item())
+    assert (hf - h_ref).abs().max().item() <= 1e-4 * max(1.0, h_ref.abs().max().item())
+
+
+def test_gaussian_scoring_block_times_coefficient_columns(dev):
+    """K1's scoring block times a (d, 15) coefficient block (an OVO model's
+    15 pair problems) against the plain block times the same columns."""
+    xt, xs = _randn((2048, 8), dev, 40), _randn((5000, 8), dev, 41)
+    z = _randn((5000, 15), dev, 42)
+    before = _build.launch_counts["gaussian_block"]
+    scores = gops.gaussian_block(xt, xs, 1.5) @ z
+    assert _build.launch_counts["gaussian_block"] == before + 1
+    ref = gref.gaussian_block_ref(xt, xs, 1.5) @ z
+    assert (scores - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("task", ["ovo", "svr"])
+def test_task_engine_on_the_card_matches_the_cpu(dev, task):
+    """A 2048-point OVO (4 classes) or ε-SVR engine, card against CPU:
+    biases and scores to 1e-3 of the largest score, OVO's predicted labels
+    equal on 99.5% (SVR's predictions are its scores)."""
+    from repro_torch.core.admm import ADMMParams
+    from repro_torch.core.compression import CompressionParams
+    from repro_torch.core.engine import HSSSVMEngine
+    from repro_torch.core.kernelfn import KernelSpec
+    from repro_torch.data import synthetic
+
+    if task == "ovo":
+        data = synthetic.train_test("multiclass_blobs", 2048, 512, seed=3, n_classes=4)
+        kw, knob = dict(spec=KernelSpec(h=1.5), strategy="ovo"), 1.0
+    else:
+        data = synthetic.train_test("noisy_sine", 2048, 512, seed=3, noise=0.1)
+        kw, knob = dict(spec=KernelSpec(h=1.0), task="svr", svr_c=2.0), 0.1
+    out = {}
+    for where in ("cuda", "cpu"):
+        eng = HSSSVMEngine(comp=CompressionParams.crude(), leaf_size=128,
+                           admm=ADMMParams(max_it=10), device=where, **kw)
+        eng.prepare(data[0], data[1])
+        model, _ = eng.train(knob)
+        out[where] = (model.biases.cpu(), model.decision_function(data[2]).cpu(),
+                      model.predict(data[2]).cpu())
+    scale = out["cpu"][1].abs().max().item()
+    assert (out["cuda"][0] - out["cpu"][0]).abs().max().item() <= 1e-3 * scale
+    assert (out["cuda"][1] - out["cpu"][1]).abs().max().item() <= 1e-3 * scale
+    if task == "ovo":
+        assert (out["cuda"][2] == out["cpu"][2]).float().mean().item() >= 0.995

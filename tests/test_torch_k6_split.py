@@ -260,3 +260,46 @@ def test_wrapper_refuses_cpu_tensors_and_mixed_types():
     args = [torch.from_numpy(t) for t in _inputs(1, 32, 2, 8, 1, 8, seed=0, bf16=False)]
     with pytest.raises(ValueError, match="CUDA"):
         ssd_kern.ssd_chunk_cuda(*args, chunk=16)
+
+
+# split_plan: (b, s, h, g, p, n, chunk, elem_bytes) -> (q, column slices)
+@pytest.mark.parametrize("args,q,cols", [
+    ((4, 1024, 64, 1, 64, 64, 128, 2), 128, ((0, 64),)),     # zamba2 path: unchanged
+    ((2, 512, 4, 1, 64, 64, 256, 2), 128, ((0, 64),)),       # chunk 256 -> 128
+    ((2, 512, 4, 1, 64, 64, 256, 4), 128, ((0, 64),)),
+    ((1, 256, 2, 1, 160, 64, 128, 2), 128, ((0, 128), (128, 160))),   # P 160
+    ((1, 256, 2, 1, 160, 64, 128, 4), 128, ((0, 128), (128, 160))),
+    ((1, 256, 2, 1, 128, 128, 128, 4), 64, ((0, 128),)),     # f32 Q 128 P 128 N 128
+    ((1, 256, 2, 1, 128, 128, 128, 2), 128, ((0, 128),)),    # ... fits in bf16
+    ((1, 300, 2, 1, 64, 64, 300, 2), 100, ((0, 64),)),       # largest divisor <= 128
+], ids=["zamba2", "chunk256-bf16", "chunk256-f32", "p160-bf16", "p160-f32",
+        "f32-q128-p128-n128", "bf16-q128-p128-n128", "chunk300"])
+def test_split_plan(args, q, cols):
+    plan = ssd_kern.split_plan(*args)
+    assert plan == (q, cols)
+    b, s, h, g, p, n, chunk, elem = args
+    assert chunk % plan.q == 0 and s % plan.q == 0
+    sm = ssd_kern.smem_plan(plan.q, min(p, ssd_kern.MAX_P), n, elem,
+                            ssd_kern.head_tile(b, s // plan.q, h, g))
+    assert max(sm.state_bytes, sm.scan_bytes) <= ssd_kern.SMEM_LIMIT
+
+
+def test_split_plan_refuses_a_state_too_wide_for_any_chunk():
+    with pytest.raises(ValueError, match="state width N"):
+        ssd_kern.split_plan(1, 64, 2, 1, 64, 4096, 64, 4)
+
+
+def test_plain_version_is_chunk_and_column_invariant():
+    """What split_plan relies on, in the plain version: chunk 256 against
+    chunk 128, and P 160 against its two column slices (y and state, 1e-5
+    of max(1, max |ref|))."""
+    args = [torch.from_numpy(t) for t in _inputs(2, 512, 4, 64, 2, 32, seed=3, bf16=False)]
+    y256, h256 = ssd_ref.ssd_chunked_ref(*args, 256)
+    y128, h128 = ssd_ref.ssd_chunked_ref(*args, 128)
+    assert _rel(y256, y128) <= 1e-5 and _rel(h256, h128) <= 1e-5
+    args = [torch.from_numpy(t) for t in _inputs(1, 256, 2, 160, 1, 64, seed=4, bf16=False)]
+    y, hf = ssd_ref.ssd_chunked_ref(*args, 128)
+    parts = [ssd_ref.ssd_chunked_ref(args[0][..., c0:c1], *args[1:], 128)
+             for c0, c1 in ssd_kern.split_plan(1, 256, 2, 1, 160, 64, 128, 4).cols]
+    assert _rel(torch.cat([p[0] for p in parts], -1), y) <= 1e-5
+    assert _rel(torch.cat([p[1] for p in parts], -1), hf) <= 1e-5

@@ -24,7 +24,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.admm_update import kernel as akern, ops as aops
 from repro_torch.kernels.attention import kernel as attn_kern
 from repro_torch.kernels.ssd import kernel as ssd_kern
-from repro_torch.core import kernelfn as tkfn
+from repro_torch.core import idqr, kernelfn as tkfn
 from repro_torch.kernels.compress import kernel as ckern, laplacian as lops, ops as cops
 from repro_torch.kernels.compress import ref as cref, verify
 from repro_torch.kernels.gaussian import kernel as gkern, ops as gops
@@ -255,6 +255,35 @@ def test_compare_row_ids_tells_rounding_ties_from_wrong_pivots(kernel_name, h, r
     wrong[1, 0] = int(weakest)
     rep = verify.compare_row_ids(xc, xp, cmask, h, kernel_name, rtol, wrong, r, piv, r)
     assert rep["mismatches"] == 1 and rep["untied"] == 1 and rep["off_greedy"] == 1
+
+
+def test_compare_row_ids_widens_ties_by_the_assembly_error_on_dense_nodes():
+    """Dense 2-feature nodes (candidates in a 0.1 box at |x| ~ 6, h 1, as a
+    leaf of 10^6 uniform points sits): the f32 norm expansion of the plain
+    version errs by ~eps·|x|² an entry, and its pivots leave the f64 greedy
+    ones beyond the deflation-only error bars on some nodes (measured 9 of
+    200).  With each column's assembly error in its bars none does, and a
+    pivot swapped for the weakest candidate still reads as wrong."""
+    rng = np.random.default_rng(0)
+    b, m, s, k, h = 200, 256, 64, 32, 1.0
+    ang = rng.uniform(0, 2 * np.pi, b)
+    centre = 6.0 * np.stack([np.cos(ang), np.sin(ang)], 1)[:, None, :]
+    xc = torch.as_tensor((centre + rng.uniform(-0.05, 0.05, (b, m, 2))).astype(np.float32))
+    xp = torch.as_tensor(np.concatenate(
+        [centre + rng.uniform(-0.15, 0.15, (b, s // 2, 2)),
+         rng.uniform(-7.0, 7.0, (b, s // 2, 2))], 1).astype(np.float32))
+    cmask = torch.ones(b, m)
+    piv, r = cref.fused_assemble_id_ref(xc, xp, cmask, k, h, "gaussian")
+    a64 = torch.exp(-torch.cdist(xp.double(), xc.double()) ** 2 / (2 * h * h))
+    p64, q64 = idqr.cpqr_select(a64, k)
+    exact = (p64, (q64.transpose(1, 2) @ a64).float())
+    rep = verify.compare_row_ids(xc, xp, cmask, h, "gaussian", 1e-2, piv, r, *exact)
+    assert rep["untied"] > 0 and rep["off_greedy"] > 0
+    assert rep["untied_asm"] == 0 and rep["off_greedy_asm"] == 0
+    wrong = exact[0].clone()
+    wrong[1, 0] = int(a64[1].norm(dim=0).argmin())
+    rep = verify.compare_row_ids(xc, xp, cmask, h, "gaussian", 1e-2, wrong, exact[1], *exact)
+    assert rep["mismatches"] == 1 and rep["untied_asm"] == 1 and rep["off_greedy_asm"] == 1
 
 
 @pytest.mark.parametrize("n", [128, 1000, 4097])
