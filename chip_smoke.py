@@ -17,8 +17,11 @@ Phases, each printed on its own lines, none of them allowed to fail:
                  the CPU (plain versions), for the three configurations
                  below: bias and predictions agree; then the tasks of the
                  paths 9-12 at 2048 points (OVR and OVO on 4 classes, SVR,
-                 one-class, KRR), a binary run with bf16-stored factors, and
-                 spectral_embed(3) on circles;
+                 one-class, KRR), a binary run with bf16-stored factors,
+                 spectral_embed(3) on circles, the repo's multilevel and
+                 adaptive-ρ bench cases (iterations, β sequence, accuracy),
+                 and a registry round trip of the card's binary model
+                 (loaded on the CPU and on the card);
   5. main      — HSSSVMEngine prepare / train(C=1) / predict on the
                  10^6-point blobs SVM, gaussian, fixed rank 32, leaf 256
                  (2^20 padded points, 12 levels); accuracy >= 0.93.  Then
@@ -54,7 +57,29 @@ Phases, each printed on its own lines, none of them allowed to fail:
  12. gp        — noisy_sine, task "gp" at λ 0.5 then 2 (one refactorization
                  each, no ADMM), the log marginal, the 8 leading eigenpairs:
                  the solves' backward error and the Ritz residuals bounded;
- 13. kernels   — K5 (flash attention) against its plain version at the
+ 13. stream    — the 10^6-point blobs SVM through the out-of-core streamed
+                 build (crude preset, 16 leaves a batch): accuracy, the
+                 batch count, counted peak bytes and kernel evals equal to
+                 the JAX package's, the level loop's measured device peak
+                 under 1 GiB; [check stream] replays every K1 and K2 launch
+                 and prints K2's plan at each batch shape, the 16-node
+                 leaf batch timed at every cluster size that fits;
+ 14. multilevel — on [stream]'s engine: a cold train (tol 3e-2, 400
+                 iterations) against train_multilevel(coarse_frac 1/8);
+                 every launch of both replayed by the plain versions;
+ 15. adaptive-rho — the same engine from β 10^4, ρ balanced every 5
+                 iterations under the port's floor (rho_guard): rescales,
+                 final β, one factorization per β, the scoring launch
+                 replayed; then the reference's loop (no floor) reported,
+                 and fixed-β ADMM below and at the floor on this K̃ and on
+                 a second one (2^17 points, seed 1);
+ 16. stream-resume — 2^17 points: an uninterrupted streamed build, then
+                 one restarted in-process after a failure at level 3 and
+                 one resumed by a fresh call after a failure at level 6:
+                 every tensor equal to the uninterrupted build's; the
+                 engine's build of the same points equal to it too, and
+                 its launches replayed;
+ 17. kernels   — K5 (flash attention) against its plain version at the
                  zamba2 path's shape (4 x 32 x 1024 x 64 bf16, causal; SDPA
                  timed beside it), gemma2-9b's local layer (H16/KV8, D256,
                  window 4096 on S 8192, softcap 50), hubert-xlarge's D80
@@ -63,16 +88,17 @@ Phases, each printed on its own lines, none of them allowed to fail:
                  bf16 (x, B and C as views of one xBC tensor, as the model
                  hands them over) and f32, y and the final state.  Kernel,
                  plain and bound ms;
- 14. lm-small  — zamba2-1.2b at full width, 6 layers, f32: prefill of 256
-                 tokens and 4 teacher-forced decode steps on the card against
-                 the same model on the CPU; the logits agree;
- 15. lm        — the serving entry point (repro_torch.launch.serve) at
+ 18. lm-small  — zamba2-1.2b at full width, 6 layers, f32 and then bf16:
+                 prefill of 256 tokens and 4 teacher-forced decode steps on
+                 the card against the same model on the CPU; the logits
+                 agree;
+ 19. lm        — the serving entry point (repro_torch.launch.serve) at
                  zamba2-1.2b's full width and depth, bf16, batch 4, prompt
                  1024, 32 generated tokens: prefill runs K5 6 times and K6 38
                  times, decode neither; then again after a warm-up prefill.
                  Then [check lm]: every K5 and K6 launch of the path run again
                  by the plain version on the path's own inputs;
- 16. summary   — one JSON line {"kernels": [...]}, then the last line
+ 20. summary   — one JSON line {"kernels": [...]}, then the last line
                  {"ok": true, "device": {...}}.
 Every path runs with the launch counts set to 0 just before it, and checks
 each count just after it against what the code implies; the launches of the
@@ -85,9 +111,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -135,6 +165,43 @@ RITZ_RTOL = 1e-4
 # the bf16-stored row to one bf16 step moved through 10 solves (the bar of
 # tests/test_torch_adaptive.py against the f32 solve).
 SMALL_RTOL, SMALL_BF16_RTOL, SMALL_AGREE = 1e-3, 1e-2, 0.995
+# [small]'s multilevel and adaptive-ρ rows: benchmarks/bench_svm.py's
+# svm_multilevel/blobs and svm_adaptive_rho cases (:590-685), card against
+# CPU.  The JAX package on a CPU: cold 192, warm 178, coarse 233 iterations;
+# fixed 400, adaptive 111 (final β 39.0625, 8 rescales).  Iteration counts
+# may move by a freeze test flipping near tol on rounding: ITERS_RTOL.
+ML_N, ML_N_TEST, ML_FEATURES, ML_SEP, ML_H = 2048, 512, 5, 3.0, 2.0
+ML_BETA, ML_TOL, ML_MAX_IT, ML_COARSE_FRAC, ML_COARSE_LEAF = 100.0, 3e-2, 400, 0.25, 64
+RHO_BETA0 = 1e4
+REF_ML_ITERS = dict(cold=192, warm=178, coarse=233)
+REF_RHO = dict(fixed=400, adaptive=111, rho_final=39.0625, rescales=8)
+ITERS_RTOL = 0.05
+# [stream]: benchmarks/bench_svm.py's svm_scaling/n1000000/streamed case
+# (:508-587) at full size on one device: the [main] data, gaussian h 1, the
+# crude preset, leaf 256, 16 leaves a batch, 10 ADMM iterations, C 1.  The
+# JAX package's run (BENCH_svm.json, its CPU, mesh-assembled over 8 emulated
+# devices): accuracy 0.9546; 515 batches, peak_stream_bytes 4,884,544 and
+# kernel_evals 364,891,136, which depend on the shapes only; ranks_post 32 at
+# every level but the last (28), rank_sum_post 262,072.
+STREAM_BATCH = 16
+REF_STREAM_ACC, STREAM_ACC_MARGIN = 0.9546, 0.02
+REF_STREAM = dict(batches=515, peak_stream_bytes=4_884_544, kernel_evals=364_891_136,
+                  rank_sum_post=262_072)
+STREAM_DEVICE_PEAK_MAX = 2 ** 30     # the level loop's measured working set
+# [multilevel] / [adaptive-rho] on [stream]'s engine at 10^6 points: the
+# bench cases' knobs (tol 3e-2, 400 iterations; coarse 1/8; ρ every 5
+# iterations, at most 8 rescales) from the paper's β of 10^4.
+BIG_COARSE_FRAC = 0.125
+# The floor of adaptive ρ (HSSSVMEngine.rho_floor) on a second K̃: the
+# [stream] configuration at 2^17 points from another seed, resident.
+FLOOR_N2, FLOOR_SEED2 = 2 ** 17, 1
+# [stream-resume]: svm_scaling/n131072/streamed (2^17 points, the same
+# configuration; the JAX package: 67 batches, kernel_evals 45,599,744,
+# accuracy 0.9434): a failure at level 3 restarted in-process, a failure at
+# level 6 with no restart budget resumed by a fresh call.
+RESUME_N = 2 ** 17
+REF_RESUME = dict(batches=67, kernel_evals=45_599_744)
+RESUME_FAIL_IN_PROCESS, RESUME_FAIL_FRESH = 3, 6
 # [check multi]: K1's scoring blocks times the coefficient block against the
 # plain block times the same block, of the largest score: block entries a
 # few f32 ulps apart (K1_ATOL at worst), through the same matmul.
@@ -281,6 +348,11 @@ K6_RTOL = 1e-4       # f32 chunk sums in another order (the JAX SSD test's rtol)
 # through 6 layers, one attention and two SSD chunks (the CPU tests see 1e-6
 # between the port and the JAX package), of the largest |logit|.
 LM_SMALL_RTOL = 1e-3
+# [lm-small-bf16]: the same model in bf16 on both devices, K5 and K6 on bf16
+# views on the card, their plain versions on the CPU: bf16 rounds at other
+# places in the two runs; the bar of the CPU tests that hold the bf16 port
+# against the JAX package (tests/test_torch_lm.py), of the largest |logit|.
+LM_SMALL_BF16_RTOL = 5e-2
 # K5's cases, all bf16 as the models compute: (label, (B, H, KV, S, D), timing
 # repeats, the SDPA call that computes the same function or None, options).
 # The first is the zamba2 path's shape; gemma2's softcap has no SDPA twin.
@@ -489,39 +561,60 @@ def lm_phases(torch, dev):
     k6_rows = [k6_case(label, *shape, reps, dtype) for label, shape, reps, dtype in K6_CASES]
     torch.cuda.empty_cache()
 
-    # ---- [lm-small]: full width, 6 layers, the card against the CPU ------ #
-    cfg_small = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_SMALL_LAYERS,
-                                    compute_dtype="float32")
-    cpu_model = Model(cfg_small, device="cpu").init(torch.Generator().manual_seed(0))
-    card_model = Model(cfg_small, device=dev)
-    card_model.load_state_dict(cpu_model.state_dict())
-    toks = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg_small.vocab, size=(1, LM_SMALL_PROMPT + LM_SMALL_STEPS)))
-    worst = 0.0
-    logits = {}
-    for where, model in (("cpu", cpu_model), ("cuda", card_model)):
-        _build.reset_launch_counts()       # read after the card's run, the last
-        t = toks.to(model.device)
-        out, cache = model.prefill({"tokens": t[:, :LM_SMALL_PROMPT]},
-                                   LM_SMALL_PROMPT + LM_SMALL_STEPS)
-        outs = [out.cpu()]
-        for i in range(LM_SMALL_PROMPT, LM_SMALL_PROMPT + LM_SMALL_STEPS):
-            out, cache = model.decode_step(cache, t[:, i:i + 1])
-            outs.append(out.cpu())
-        logits[where] = outs
-    small_counts = dict(_build.launch_counts)
-    for a_, b_ in zip(logits["cuda"], logits["cpu"]):
-        check(bool(torch.isfinite(a_).all()), "lm-small: non-finite logits on the card")
-        worst = max(worst, rel_err(a_, b_))
-    print(f"[lm-small] {LM_ARCH} full width, {LM_SMALL_LAYERS} layers, f32, batch 1, prompt "
-          f"{LM_SMALL_PROMPT}, {LM_SMALL_STEPS} teacher-forced decode steps: card vs CPU "
-          f"logits max_rel_err {worst:.3e} (tol {LM_SMALL_RTOL:g}); card launches "
-          f"{json.dumps({k: v for k, v in small_counts.items() if v})}")
-    check(worst <= LM_SMALL_RTOL, f"lm-small: the card and the CPU disagree: {worst}")
-    check(small_counts["flash_attention"] == 1 and small_counts["ssd_chunk"] == LM_SMALL_LAYERS,
-          f"lm-small: launches {small_counts}")
-    del cpu_model, card_model, logits
-    torch.cuda.empty_cache()
+    # ---- [lm-small] (f32) and [lm-small-bf16]: full width, 6 layers, the
+    # card against the CPU, the same weights through load_state_dict -------- #
+    def lm_small(tag, compute_dtype, tol):
+        cfg_small = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_SMALL_LAYERS,
+                                        compute_dtype=compute_dtype)
+        cpu_model = Model(cfg_small, device="cpu").init(torch.Generator().manual_seed(0))
+        card_model = Model(cfg_small, device=dev)
+        card_model.load_state_dict(cpu_model.state_dict())
+        toks = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg_small.vocab, size=(1, LM_SMALL_PROMPT + LM_SMALL_STEPS)))
+        worst = 0.0
+        logits = {}
+        t0 = time.perf_counter()
+        for where, model in (("cpu", cpu_model), ("cuda", card_model)):
+            _build.reset_launch_counts()       # read after the card's run, the last
+            t = toks.to(model.device)
+            out, cache = model.prefill({"tokens": t[:, :LM_SMALL_PROMPT]},
+                                       LM_SMALL_PROMPT + LM_SMALL_STEPS)
+            outs = [out.cpu()]
+            for i in range(LM_SMALL_PROMPT, LM_SMALL_PROMPT + LM_SMALL_STEPS):
+                out, cache = model.decode_step(cache, t[:, i:i + 1])
+                outs.append(out.cpu())
+            logits[where] = outs
+        counts = dict(_build.launch_counts)
+        for a_, b_ in zip(logits["cuda"], logits["cpu"]):
+            check(bool(torch.isfinite(a_.float()).all()), f"{tag}: non-finite logits on the card")
+            worst = max(worst, rel_err(a_, b_))
+        print(f"[{tag}] {LM_ARCH} full width, {LM_SMALL_LAYERS} layers, {compute_dtype}, batch 1, "
+              f"prompt {LM_SMALL_PROMPT}, {LM_SMALL_STEPS} teacher-forced decode steps: card vs "
+              f"CPU logits max_rel_err {worst:.3e} (tol {tol:g}); logits "
+              f"{logits['cuda'][0].dtype}; {time.perf_counter() - t0:.1f} s both runs; card "
+              f"launches {json.dumps({k: v for k, v in counts.items() if v})}")
+        check(worst <= tol, f"{tag}: the card and the CPU disagree: {worst}")
+        check(counts["flash_attention"] == 1 and counts["ssd_chunk"] == LM_SMALL_LAYERS,
+              f"{tag}: launches {counts}")
+        del cpu_model, card_model, logits
+        torch.cuda.empty_cache()
+
+    lm_small("lm-small", "float32", LM_SMALL_RTOL)
+    # the bf16 twin: on the card K6 takes x, B and C as bf16 views of xBC
+    rec6 = []
+    orig6 = ssd_kern.ssd_chunk_cuda
+
+    def ssd_rec(*args, **kw):
+        rec6.append(str(args[0].dtype))
+        return orig6(*args, **kw)
+
+    ssd_kern.ssd_chunk_cuda = ssd_rec
+    try:
+        lm_small("lm-small-bf16", "bfloat16", LM_SMALL_BF16_RTOL)
+    finally:
+        ssd_kern.ssd_chunk_cuda = orig6
+    check(rec6 == ["torch.bfloat16"] * LM_SMALL_LAYERS,
+          f"lm-small-bf16: K6 took {rec6}, not the model's bf16")
 
     # ---- [lm]: the serving entry point at full width and depth ----------- #
     rec = {"flash_attention_cuda": [], "ssd_chunk_cuda": []}
@@ -623,8 +716,11 @@ def main() -> int:
         return 2
     import numpy as np
 
-    from repro_torch.core import admm as admm_mod
+    from repro_torch.core import admm as admm_mod, compression
     from repro_torch.core.admm import ADMMParams
+    from repro_torch.core.compression import StreamParams
+    from repro_torch.dist.fault import FailureInjector, InjectedFailure
+    from repro_torch.serve import ModelRegistry
     from repro_torch.core import tree as tree_mod
     from repro_torch.core.compression import CompressionParams
     from repro_torch.core.engine import HSSSVMEngine
@@ -645,6 +741,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    rho_params = ADMMParams(max_it=ML_MAX_IT, tol=ML_TOL, adapt_rho=True, rho_every=5,
+                            rho_max_updates=8)
 
     # ---- 1. device ---------------------------------------------------- #
     card = device_line()
@@ -800,6 +898,7 @@ def main() -> int:
         "laplacian crude": (KernelSpec("laplacian", H_LAP), crude),
         "gaussian accurate": (KernelSpec(h=H_ACC), acc),
     }
+    card_models = {}
     for label, (spec, comp) in configs.items():
         small = {}
         for where in ("cuda", "cpu"):
@@ -809,6 +908,8 @@ def main() -> int:
             mdl, (zs, _) = eng.train(C)
             small[where] = (mdl.biases.cpu(), mdl.decision_function(xst).cpu(), zs.cpu(),
                             rep_s.ranks_post)
+            if where == "cuda":
+                card_models[label] = mdl
         db = (small["cuda"][0] - small["cpu"][0]).abs().max().item()
         dscore = (small["cuda"][1] - small["cpu"][1]).abs().max().item()
         dz = (small["cuda"][2] - small["cpu"][2]).abs().max().item()
@@ -954,22 +1055,113 @@ def main() -> int:
           f"err {demb:.3e} up to sign (tol 5e-3, tests/test_torch_krr.py's bar)")
     check(dev_ <= SMALL_RTOL and demb <= 5e-3, "the card and the CPU disagree on spectral_embed")
 
+    # The multilevel warm start and adaptive ρ (this slice) at the repo's own
+    # fixed-size bench cases, card against CPU: the same β sequence and
+    # rescale count, iteration counts within ITERS_RTOL, accuracy equal.
+    ml_data = synthetic.train_test("blobs", ML_N, ML_N_TEST, seed=0, n_features=ML_FEATURES,
+                                   sep=ML_SEP)
+
+    def ml_acc(model):
+        return float(np.mean(model.predict(ml_data[2]).cpu().numpy() == ml_data[3]))
+
+    def close_iters(a, b):
+        return abs(a - b) <= ITERS_RTOL * b
+
+    ml_rows, rho_rows = {}, {}
+    for where in ("cuda", "cpu"):
+        eng = HSSSVMEngine(spec=KernelSpec(h=ML_H), comp=crude, leaf_size=128, beta=ML_BETA,
+                           admm=ADMMParams(max_it=ML_MAX_IT, tol=ML_TOL), device=where)
+        eng.prepare(ml_data[0], ml_data[1])
+        m_cold, _ = eng.train(C)
+        cold = eng.report.iters_run[0]
+        m_warm, info = eng.train_multilevel(C, coarse_frac=ML_COARSE_FRAC,
+                                            coarse_leaf_size=ML_COARSE_LEAF, seed=0)
+        ml_rows[where] = dict(cold=cold, warm=info["iters_run"][0],
+                              coarse=info["coarse_iters_run"][0], coarse_n=info["coarse_n"],
+                              acc_cold=ml_acc(m_cold), acc_warm=ml_acc(m_warm))
+        eng = HSSSVMEngine(spec=KernelSpec(h=ML_H), comp=crude, leaf_size=128, beta=RHO_BETA0,
+                           admm=ADMMParams(max_it=ML_MAX_IT, tol=ML_TOL), device=where)
+        eng.prepare(ml_data[0], ml_data[1])
+        m_fixed, _ = eng.train(C)
+        fixed = eng.report.iters_run[0]
+        eng.admm = rho_params
+        m_rho, _ = eng.train(C)
+        rho_rows[where] = dict(fixed=fixed, adaptive=eng.report.iters_run[0],
+                               rho_final=eng.report.rho_final,
+                               rescales=eng.report.rho_rescales, betas=list(eng._fac_cache),
+                               acc_fixed=ml_acc(m_fixed), acc_adaptive=ml_acc(m_rho))
+    mk, mc = ml_rows["cuda"], ml_rows["cpu"]
+    print(f"[small] svm_multilevel/blobs n={ML_N} card vs CPU: iterations cold {mk['cold']} vs "
+          f"{mc['cold']}, warm {mk['warm']} vs {mc['warm']}, coarse {mk['coarse']} vs "
+          f"{mc['coarse']} (need within {ITERS_RTOL:.0%}; JAX CPU {REF_ML_ITERS}), coarse_n "
+          f"{mk['coarse_n']} vs {mc['coarse_n']}, accuracy cold {mk['acc_cold']:.4f} vs "
+          f"{mc['acc_cold']:.4f}, warm {mk['acc_warm']:.4f} vs {mc['acc_warm']:.4f}")
+    check(all(close_iters(mk[key], mc[key]) for key in ("cold", "warm", "coarse"))
+          and mk["coarse_n"] == mc["coarse_n"] and mk["acc_cold"] == mc["acc_cold"]
+          and mk["acc_warm"] == mc["acc_warm"],
+          "the card and the CPU disagree on the small multilevel run")
+    rk, rc = rho_rows["cuda"], rho_rows["cpu"]
+    print(f"[small] svm_adaptive_rho n={ML_N} beta0 {RHO_BETA0:g} card vs CPU: iterations fixed "
+          f"{rk['fixed']} vs {rc['fixed']}, adaptive {rk['adaptive']} vs {rc['adaptive']} (need "
+          f"within {ITERS_RTOL:.0%}; JAX CPU {REF_RHO}), rescales {rk['rescales']} vs "
+          f"{rc['rescales']}, final beta {rk['rho_final']} vs {rc['rho_final']}, beta sequence "
+          f"{rk['betas']} (CPU equal: {rk['betas'] == rc['betas']}), accuracy fixed "
+          f"{rk['acc_fixed']:.4f} vs {rc['acc_fixed']:.4f}, adaptive {rk['acc_adaptive']:.4f} vs "
+          f"{rc['acc_adaptive']:.4f}")
+    check(rk["betas"] == rc["betas"] and rk["rescales"] == rc["rescales"]
+          and rk["rho_final"] == rc["rho_final"]
+          and close_iters(rk["fixed"], rc["fixed"]) and close_iters(rk["adaptive"], rc["adaptive"])
+          and rk["acc_fixed"] == rc["acc_fixed"] and rk["acc_adaptive"] == rc["acc_adaptive"],
+          "the card and the CPU disagree on the small adaptive-rho run")
+
+    # The registry: the binary model trained on the card above, saved, then
+    # loaded on the CPU and on the card.
+    reg_dir = tempfile.mkdtemp(prefix="chip_smoke_registry_")
+    try:
+        registry = ModelRegistry(reg_dir)
+        card_model = card_models["gaussian fixed"]
+        registry.save("binary", card_model)
+        want_pred = card_model.predict(xst).cpu()
+        for where in ("cpu", "cuda"):
+            back, info = registry.load("binary", device=where)
+            same = back.x_perm.device.type == where and all(
+                torch.equal(getattr(back, n).cpu(), getattr(card_model, n).cpu())
+                for n in ("x_perm", "z_y", "biases"))
+            pred_eq = torch.equal(back.predict(xst).cpu(), want_pred)
+            print(f"[small] registry: the card's binary model loaded on the {where} (version "
+                  f"{info.version}, {info.n_support_kept} support rows): arrays bit-equal "
+                  f"{same}, predictions equal {pred_eq}")
+            check(same and pred_eq, f"registry: the model loaded on the {where} differs")
+    finally:
+        shutil.rmtree(reg_dir, ignore_errors=True)
+
     # ---- 5-7. the paths at paper scale, each with its check ----------- #
     launchers = ((gkern, "gaussian_block_cuda"), (lops, "laplacian_block_cuda"),
                  (ckern, "fused_assemble_id_cuda"))
 
+    def moved(obj, where):
+        """A launch's arguments or outputs with every tensor on ``where``."""
+        if isinstance(obj, torch.Tensor):
+            return obj.to(where)
+        if isinstance(obj, tuple):
+            return tuple(moved(o, where) for o in obj)
+        return obj
+
     @contextlib.contextmanager
-    def recording():
+    def recording(to_host=False):
         """Keep the arguments of every K1, K4 and K2 launch made inside the
         block (and K2's pivots and R): the path's own inputs, which its
         check runs through the plain versions afterwards.  The launchers
-        themselves run once per call, so each launch still counts once."""
+        themselves run once per call, so each launch still counts once.
+        ``to_host`` keeps host copies, so that the records of a streamed
+        build take no device memory from the working set it measures."""
         rec = {name: [] for _, name in launchers}
         saved = [(mod, name, getattr(mod, name)) for mod, name in launchers]
         for mod, name, fn in saved:
             def wrapped(*args, _fn=fn, _name=name):
                 out = _fn(*args)
-                rec[_name].append((args, out if _name == "fused_assemble_id_cuda" else None))
+                kept = (args, out if _name == "fused_assemble_id_cuda" else None)
+                rec[_name].append(moved(kept, "cpu") if to_host else kept)
                 return out
             setattr(mod, name, wrapped)
         try:
@@ -997,6 +1189,7 @@ def main() -> int:
         pred = pred.cpu().numpy()
         acc_ = float(np.mean(pred == yte))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        path_peaks[tag] = peak_gb
         print(f"[{tag}] kernel={spec.name} h={spec.h} rtol={comp.rtol} n={xtr.shape[0]} "
               f"padded={engine.hss.n} levels={rep.hss_levels} beta={rep.beta:g}: "
               f"compression_s {rep.compression_s:.3f}, "
@@ -1056,12 +1249,14 @@ def main() -> int:
               f"against the plain version, max_abs_err {worst:.3e} (tol {tol:g}); "
               f"{skipped} pad-pad entries left out")
 
-    def compare_k2(tag, label, args, out, rtol, min_match, spec, pad_from, asm=False):
+    def compare_k2(tag, label, args, out, rtol, min_match, spec, pad_from, asm=False,
+                   quiet=False):
         """K2's (piv, R) on one level against the plain version's on the
         same inputs: live-slot pivots and ranks, each mismatch a rounding tie
         that stays a greedy pivoted QR after it, R on the agreeing nodes'
         live rows.  With ``asm`` a tie's error bars also hold each column's
-        f32 assembly error (verify.py; see K2_PIV_MATCH_DENSE)."""
+        f32 assembly error (verify.py; see K2_PIV_MATCH_DENSE).  ``quiet``
+        prints nothing (the caller sums many launches into one line)."""
         xc, xp, cm, k, h, kind = args
         piv, r = out
         pads = pad_pairs(xc, xp, spec, pad_from)
@@ -1073,9 +1268,11 @@ def main() -> int:
                 xc, xp, cm, piv, r = xc[keep], xp[keep], cm[keep], piv[keep], r[keep]
         piv_ref, r_ref = cref.fused_assemble_id_ref(xc, xp, cm, k, h, kind)
         res = verify.compare_row_ids(xc, xp, cm, h, kind, rtol, piv, r, piv_ref, r_ref)
+        res["dropped"] = dropped
         del piv_ref, r_ref, piv, r
         b, m, f = xc.shape
-        print(f"[check {tag}] K2 {kind} {label} B={b} m={m} s={xp.shape[1]} k={k} f={f} "
+        print_ = (lambda *a: None) if quiet else print
+        print_(f"[check {tag}] K2 {kind} {label} B={b} m={m} s={xp.shape[1]} k={k} f={f} "
               f"({dropped} nodes with pad-pad entries left out), "
               f"{int((cm == 0).sum())} dead candidates: live-pivot mismatches "
               f"{res['mismatches']}/{b}" + (f" (need >= {min_match:.1%} equal)"
@@ -1204,6 +1401,7 @@ def main() -> int:
         return rows
 
     k2_builds = {}
+    path_peaks = {}
     blobs = synthetic.train_test("blobs", N_TRAIN, N_TEST, seed=0,
                                  n_features=N_FEATURES, sep=SEP)
     engine, rep, main_counts, z_main, rec = run_path("main", KernelSpec(h=H), params,
@@ -1288,6 +1486,8 @@ def main() -> int:
     want3 = {name: 0 for name in k3_counts}
     want3["zmu_update"] = MAX_IT
     check(k3_counts == want3, f"K3 path launches {k3_counts}, expected {want3}")
+    del main_fac, ys, pmask, st_f, st_u, tr_f, tr_u, z_main
+    torch.cuda.empty_cache()
 
     # ---- 9-12. the task paths at paper scale (this slice) -------------- #
     def counted_run(tag, fn):
@@ -1478,13 +1678,469 @@ def main() -> int:
     del gp, vecs, sdata, rec
     torch.cuda.empty_cache()
 
-    # ---- 13-15. the LM serving path ----------------------------------- #
+    # ---- 13-16. paper-scale builds (this slice) ------------------------ #
+    def streamed_batches(levels):
+        """Batches of a streamed build of ``levels`` levels, by level below
+        the root: the leaves in STREAM_BATCH-node batches, each upper level
+        in batches of the even node count at most STREAM_BATCH.  The root
+        is one batch more."""
+        lvl = max(2, STREAM_BATCH - STREAM_BATCH % 2)
+        return [-(-2 ** levels // STREAM_BATCH)] + [-(-(2 ** (levels - k)) // lvl)
+                                                   for k in range(1, levels)]
+
+    def hss_tensors(hss):
+        return ([hss.x, hss.d_leaf, hss.u_leaf, hss.skel_leaf, *hss.transfers, *hss.skels,
+                 *hss.b_mats, *hss.level_ranks]
+                + ([hss.leaf_ranks] if hss.leaf_ranks is not None else []))
+
+    def bit_equal(a, b):
+        ta, tb = hss_tensors(a), hss_tensors(b)
+        return len(ta) == len(tb) and all(torch.equal(u, v) for u, v in zip(ta, tb))
+
+    # [stream]: the out-of-core build at 10^6 points through the engine
+    blobs = synthetic.train_test("blobs", N_TRAIN, N_TEST, seed=0,
+                                 n_features=N_FEATURES, sep=SEP)
+    pad_from = float(blobs[0][:, 0].max())
+    st_spec = KernelSpec(h=H)
+    stream_engine = HSSSVMEngine(spec=st_spec, comp=crude, leaf_size=LEAF,
+                                 admm=ADMMParams(max_it=MAX_IT),
+                                 stream=StreamParams(batch_leaves=STREAM_BATCH), device="cuda")
+    stream_calls = []
+    orig_streamed = compression.compress_streamed
+
+    def streamed_kept(*args, **kw):
+        out = orig_streamed(*args, **kw)
+        stream_calls.append((args, kw, out))
+        return out
+
+    compression.compress_streamed = streamed_kept
+    try:
+        with recording(to_host=True) as rec:
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            rep_st = stream_engine.prepare(blobs[0], blobs[1])
+            model_st, (z_st, _) = stream_engine.train(C)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pred_st = model_st.predict(blobs[2]).cpu().numpy()
+            t2 = time.perf_counter()
+            stream_counts = dict(_build.launch_counts)
+        # compress_streamed reset the peak at the build's start
+        st_path_peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        compression.compress_streamed = orig_streamed
+    # The same build again, unrecorded: its seconds without the records'
+    # host copies (one per launch), and bit-equal to the recorded build, so
+    # the records below are this build's launches too.  After the count.
+    s_args, s_kw, (s_hss, _) = stream_calls.pop()
+    torch.cuda.synchronize()
+    t_u = time.perf_counter()
+    hss_t, sst = orig_streamed(*s_args, **s_kw)
+    torch.cuda.synchronize()
+    st_build_s = time.perf_counter() - t_u
+    st_same = bit_equal(hss_t, s_hss)
+    del s_args, s_kw, s_hss, hss_t
+    torch.cuda.empty_cache()
+    acc_st = float(np.mean(pred_st == blobs[3]))
+    st_batches = streamed_batches(rep_st.hss_levels)
+    leaf_b, level_b = st_batches[0], sum(st_batches[1:])
+    want_st = {name: 0 for name in stream_counts}
+    want_st["gaussian_block"] = leaf_b + level_b + 1 + n_blocks
+    want_st["fused_assemble_id"] = leaf_b + level_b
+    print(f"[stream] kernel=gaussian h={H} rtol={crude.rtol} n={N_TRAIN} "
+          f"padded={stream_engine.hss.n} levels={rep_st.hss_levels} beta={rep_st.beta:g} "
+          f"batch_leaves={STREAM_BATCH}: compression_s {rep_st.compression_s:.3f} (recorded: "
+          f"with the records' host copies; the same build unrecorded {st_build_s:.3f} s, "
+          f"every tensor equal: {st_same}), factorization_s {rep_st.factorization_s:.3f}, "
+          f"admm_s {rep_st.admm_s:.3f}, "
+          f"prepare+train_s {t1 - t0:.3f}, predict_s {t2 - t1:.3f}, memory_mb "
+          f"{rep_st.memory_mb:.1f}, kernel_evals {rep_st.kernel_evals} (need "
+          f"{REF_STREAM['kernel_evals']})")
+    print(f"[stream] batches {rep_st.stream_batches} (need {REF_STREAM['batches']}), "
+          f"peak_stream_bytes {rep_st.peak_stream_bytes} (a count; need "
+          f"{REF_STREAM['peak_stream_bytes']}), level-loop device peak "
+          f"{rep_st.stream_device_peak_bytes} bytes measured (need < {STREAM_DEVICE_PEAK_MAX}), "
+          f"path peak from the build's start {st_path_peak:.3f} GB (assembly, factorization, "
+          f"ADMM, predict); [main]'s resident path peak {path_peaks['main']:.2f} GB")
+    print(f"[stream] host seconds of the unrecorded build: gathers and uploads "
+          f"{sst.upload_s:.3f}, downloads (each waits for its batch's kernels) "
+          f"{sst.download_s:.3f}, over {sst.n_batches} batches")
+    print(f"[stream] ranks_pre {list(rep_st.ranks_pre)} -> ranks_post {list(rep_st.ranks_post)}, "
+          f"rank_sum {rep_st.rank_sum_pre} -> {rep_st.rank_sum_post} (the JAX package: 32 at "
+          f"every level but the last, 28; {REF_STREAM['rank_sum_post']})")
+    print(f"[stream] accuracy {acc_st:.4f} (need >= {MIN_ACCURACY} and within "
+          f"{STREAM_ACC_MARGIN} of the JAX package's {REF_STREAM_ACC}); launches "
+          f"{json.dumps(stream_counts)}")
+    check(pred_st.shape == (N_TEST,) and np.isin(pred_st, (-1, 1)).all(),
+          "stream: predictions are not a ±1 vector of the test size")
+    check(bool(torch.isfinite(z_st).all()) and bool(torch.isfinite(model_st.biases).all()),
+          "stream: non-finite duals or bias")
+    check(acc_st >= MIN_ACCURACY and abs(acc_st - REF_STREAM_ACC) <= STREAM_ACC_MARGIN,
+          f"stream: accuracy {acc_st}")
+    check(rep_st.stream_batches == REF_STREAM["batches"] == leaf_b + level_b + 1,
+          f"stream: {rep_st.stream_batches} batches")
+    check(rep_st.peak_stream_bytes == REF_STREAM["peak_stream_bytes"],
+          f"stream: peak_stream_bytes {rep_st.peak_stream_bytes}")
+    check(rep_st.kernel_evals == REF_STREAM["kernel_evals"],
+          f"stream: kernel_evals {rep_st.kernel_evals}")
+    check(rep_st.stream_device_peak_bytes < STREAM_DEVICE_PEAK_MAX,
+          f"stream: level-loop device peak {rep_st.stream_device_peak_bytes} bytes")
+    check(stream_counts == want_st, f"stream: launches {stream_counts}, expected {want_st}")
+    check(st_same, "stream: the unrecorded build differs from the recorded one")
+
+    # [check stream]: every K1 and K2 launch of the path, on the card again
+    class OnCard:
+        """A path's host-kept records, moved to the card one at a time."""
+
+        def __init__(self, items):
+            self.items = items
+
+        def __len__(self):
+            return len(self.items)
+
+        def __iter__(self):
+            return (moved(item, dev) for item in self.items)
+
+    def check_streamed(tag, rec, levels, spec, pad_from):
+        """Hold every K1 and K2 launch of a streamed build (host-kept
+        records) against the plain version, K2 summed by level: its leaf and
+        level 1, and the build as a whole, need K2_PIV_MATCH of their nodes'
+        live pivots equal.  Returns the first K2 launch's comparison."""
+        check_blocks(tag, OnCard(rec["gaussian_block_cuda"]), gkern.gaussian_block_cuda,
+                     gref.gaussian_block_ref, K1_ATOL, spec, pad_from)
+        k2_rec = rec["fused_assemble_id_cuda"]
+        groups, start = [], 0
+        for k, count in enumerate(streamed_batches(levels)):
+            groups.append(("leaf" if k == 0 else f"level {k}", start, start + count))
+            start += count
+        check(start == len(k2_rec), f"check {tag}: {len(k2_rec)} K2 launches, {start} expected")
+        tot_nodes = tot_mism = 0
+        first_res = None
+        for label, a, b in groups:
+            nodes = mism = dropped = 0
+            r_err = gap = step_gap = 0.0
+            for args, out in OnCard(k2_rec[a:b]):
+                res = compare_k2(tag, label, args, out, crude.rtol, None, spec, pad_from,
+                                 quiet=True)
+                first_res = first_res or res
+                nodes += res["nodes"]
+                mism += res["mismatches"]
+                dropped += res["dropped"]
+                r_err = max(r_err, res["r_err"])
+                gap, step_gap = max(gap, res["worst_gap"]), max(step_gap, res["worst_step_gap"])
+            print(f"[check {tag}] K2 {label}: {b - a} launches of B <= {STREAM_BATCH}, {nodes} "
+                  f"nodes ({dropped} with pad-pad entries left out): live-pivot mismatches "
+                  f"{mism}, each a rounding tie (worst gap {gap:.3g} of the bound) that stays "
+                  f"greedy (worst step {step_gap:.3g}); R max_abs_err {r_err:.3e} "
+                  f"(tol {K2_R_ATOL:g})")
+            if label in ("leaf", "level 1"):
+                check(1 - mism / nodes >= K2_PIV_MATCH,
+                      f"K2 {tag} {label}: {mism} of {nodes} differ")
+            tot_nodes, tot_mism = tot_nodes + nodes, tot_mism + mism
+        print(f"[check {tag}] K2 over the path's {len(k2_rec)} launches: {tot_mism}/{tot_nodes} "
+              f"nodes differ on live pivots (need >= {K2_PIV_MATCH:.1%} equal)")
+        check(1 - tot_mism / tot_nodes >= K2_PIV_MATCH,
+              f"K2 {tag}: {tot_mism} of {tot_nodes} differ")
+        return first_res
+
+    first_res = check_streamed("stream", rec, rep_st.hss_levels, st_spec, pad_from)
+    k2_rec = rec["fused_assemble_id_cuda"]
+    # K2's plan at each distinct batch shape of the path, its time at that
+    # plan (times the shape's launches: the build's estimate), and the
+    # 16-node leaf batch at every cluster size that fits
+    shapes = {}
+    for args, _ in k2_rec:
+        key = (args[0].shape[0], args[0].shape[1], args[1].shape[1], args[3])
+        shapes.setdefault(key, [args, 0])[1] += 1
+    est_ms = est_bound = 0.0
+    plans = {}
+    for (b, m, s_, k), (args, count) in shapes.items():
+        c, tpc, rreg, smem, active = k2_plan(args)
+        ms = k2_time(moved(args, dev), 20)
+        bms = bound(*k2_cost(b, m, s_, args[0].shape[2], k, args[5]))[0]
+        est_ms, est_bound = est_ms + count * ms, est_bound + count * bms
+        plans[f"B={b} m={m} s={s_} k={k}"] = c
+        print(f"[kernels] K2 stream shape B={b} m={m} s={s_} k={k}: {count} launches, plan C={c} "
+              f"TPC={tpc} register rows {rreg}, smem {smem} B/CTA, {active} clusters "
+              f"co-resident; kernel {ms:.4f} ms, bound {bms:.4f} ms")
+    k2_builds["stream"] = dict(launches=len(k2_rec), ms=est_ms, bound_ms=est_bound,
+                               clusters=plans, estimate="per-shape time x launches")
+    print(f"[kernels] K2 stream build: {len(k2_rec)} launches, kernel {est_ms:.4f} ms (each "
+          f"shape's time x its launches), bound {est_bound:.4f} ms")
+    (args0, out0) = k2_rec[0]
+    k2_rows.append(k2_row("stream", f"leaf batch of {STREAM_BATCH}", moved(args0, dev), 20, 5,
+                          dict(max_abs_err=first_res["r_err"],
+                               pivot_mismatches=first_res["mismatches"],
+                               untied_mismatches=first_res["untied"])))
+    xa0 = moved(rec["gaussian_block_cuda"][0][0][0], dev)
+    k1_rows.append(k1_case(f"stream leaf D batch of {STREAM_BATCH}", xa0, xa0, 50,
+                           pads=pad_pairs(xa0, xa0, st_spec, pad_from)))
+    del rec, k2_rec, shapes, args0, out0, xa0
+    torch.cuda.empty_cache()
+
+    # [multilevel] and [adaptive-rho] on [stream]'s prepared engine
+    def big_run(tag, fn):
+        """Zero the counts, train (``fn``), predict, read the counts; the
+        block's launches recorded for the check that follows."""
+        with recording() as rec:
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            model, info = fn()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pred = model.predict(blobs[2]).cpu().numpy()
+            counts = dict(_build.launch_counts)
+        acc_ = float(np.mean(pred == blobs[3]))
+        check(np.isin(pred, (-1, 1)).all() and bool(torch.isfinite(model.z_y).all()),
+              f"{tag}: predictions not ±1 or non-finite duals")
+        check(acc_ >= MIN_ACCURACY, f"{tag}: accuracy {acc_} below {MIN_ACCURACY}")
+        return info, counts, acc_, t1 - t0, rec
+
+    want_score = {name: 0 for name in stream_counts}
+    want_score["gaussian_block"] = n_blocks
+    stream_engine.admm = ADMMParams(max_it=ML_MAX_IT, tol=ML_TOL)
+    _, cold_counts, acc_cold, cold_s, rec = big_run(
+        "multilevel", lambda: (stream_engine.train(C)[0], None))
+    cold_iters = stream_engine.report.iters_run[0]
+    check(cold_counts == want_score, f"multilevel: cold launches {cold_counts}")
+    check_blocks("multilevel cold", rec["gaussian_block_cuda"], gkern.gaussian_block_cuda,
+                 gref.gaussian_block_ref, K1_ATOL, st_spec, pad_from)
+    del rec
+    info, ml_counts, acc_ml, ml_s, rec = big_run(
+        "multilevel", lambda: stream_engine.train_multilevel(C, coarse_frac=BIG_COARSE_FRAC))
+    coarse_levels = tree_mod.pad_dataset(np.zeros((info["coarse_n"], 1), np.float32),
+                                         np.zeros(info["coarse_n"], np.float32),
+                                         min(LEAF, 64))[3]
+    want_ml = dict(want_score, gaussian_block=1 + coarse_levels + n_blocks,
+                   fused_assemble_id=coarse_levels)
+    print(f"[multilevel] n={N_TRAIN} tol {ML_TOL} max_it {ML_MAX_IT} beta {rep_st.beta:g}: cold "
+          f"train {cold_iters} iterations {cold_s:.3f} s (accuracy {acc_cold:.4f}); "
+          f"train_multilevel(coarse_frac={BIG_COARSE_FRAC}): coarse_n {info['coarse_n']} "
+          f"({coarse_levels} levels, leaf {min(LEAF, 64)}), coarse iterations "
+          f"{info['coarse_iters_run'][0]}, fine iterations {info['iters_run'][0]}, {ml_s:.3f} s "
+          f"in all (coarse build, coarse train, prolongation, fine train); accuracy "
+          f"{acc_ml:.4f} (need >= {MIN_ACCURACY}); launches {json.dumps(ml_counts)}")
+    check(ml_counts == want_ml, f"multilevel: launches {ml_counts}, expected {want_ml}")
+    # the coarse engine's leaf D, couplings and K2 levels, and the fine
+    # scoring (the coarse pads lie beyond every real point too)
+    check_launches("multilevel", rec, st_spec, crude, K2_PIV_MATCH, pad_from)
+    del rec
+    torch.cuda.empty_cache()
+
+    fac_calls = []
+    orig_factorize = factorization.factorize
+
+    def timed_factorize(hss, beta, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_factorize(hss, beta, **kw)
+        torch.cuda.synchronize()
+        fac_calls.append((float(beta), time.perf_counter() - t0))
+        return out
+
+    def beta_probe(engine, floor):
+        """Fixed-β ADMM on the engine's K̃ (the knobs of the adaptive run)
+        just above |λ_min|, inside (|λ_min|, 2|λ_min|), and at the floor:
+        {label: (β, duals finite and iterations to tol, first non-finite
+        residual and the last primal residual of ML_MAX_IT iterations
+        without tol)}.  Runs no kernel."""
+        task_b = admm_mod.svm_task(engine.problem_labels, C * engine.problem_masks)
+        out = {}
+        for label, frac in (("1.05 |lambda_min|", 0.525), ("1.5 |lambda_min|", 0.75),
+                            ("the floor", 1.0)):
+            b = frac * floor
+            solve = factorization.factorize(engine.hss, b).solve_mat
+            st_b, tr_b = admm_mod.admm_boxqp(solve, task_b, b, ML_MAX_IT, tol=ML_TOL)
+            _, tr_n = admm_mod.admm_boxqp(solve, task_b, b, ML_MAX_IT)
+            bad = (~torch.isfinite(tr_n.primal_res[:, 0])).nonzero()
+            out[label] = (b, bool(torch.isfinite(st_b.z).all()), int(tr_b.iters_run[0]),
+                          int(bad[0]) + 1 if len(bad) else None, float(tr_n.primal_res[-1, 0]))
+            del solve, st_b, tr_b, tr_n
+        return out
+
+    def probe_line(probe):
+        return "; ".join(
+            f"{label} = {b:.4g}: duals finite {ok}, {it} iterations to tol; without tol first "
+            f"non-finite residual at iteration {nan_at}, primal residual after {ML_MAX_IT} "
+            f"{res:.4g}" for label, (b, ok, it, nan_at, res) in probe.items())
+
+    beta0 = float(stream_engine.fac.beta)
+    # the floor of the downward rescales: 2 |least eigenvalue of K̃| (Lanczos)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rho_floor = stream_engine.rho_floor()
+    torch.cuda.synchronize()
+    floor_s = time.perf_counter() - t0
+    guarded = dataclasses.replace(rho_params, rho_guard=True)
+    stream_engine.admm = guarded
+    factorization.factorize = timed_factorize
+    try:
+        _, rho_counts, acc_rho, rho_s, rec = big_run(
+            "adaptive-rho", lambda: (stream_engine.train(C)[0], None))
+    finally:
+        factorization.factorize = orig_factorize
+    rep_rho = stream_engine.report
+    visited = [b for b, _ in fac_calls]
+    print(f"[adaptive-rho] n={N_TRAIN} tol {ML_TOL} max_it {ML_MAX_IT} from beta {beta0:g}, "
+          f"every {guarded.rho_every} iterations, at most {guarded.rho_max_updates} "
+          f"rescales, rho_guard on: none below the floor {rho_floor:.4g} (2 |least eigenvalue "
+          f"of K̃| from Lanczos, {floor_s:.3f} s): {rep_rho.iters_run[0]} iterations, "
+          f"{rep_rho.rho_rescales} rescales, final beta {rep_rho.rho_final:g}, {rho_s:.3f} s in "
+          f"all; factorizations built {[(b, round(t, 4)) for b, t in fac_calls]} (beta, s); "
+          f"cached betas {list(stream_engine._fac_cache)}; accuracy {acc_rho:.4f} (need >= "
+          f"{MIN_ACCURACY}); launches {json.dumps(rho_counts)}")
+    check(rep_rho.rho_rescales <= guarded.rho_max_updates,
+          f"adaptive-rho: {rep_rho.rho_rescales} rescales")
+    check(min(visited, default=beta0) >= rho_floor and rep_rho.rho_final >= rho_floor,
+          f"adaptive-rho: a beta below the floor {rho_floor}: {visited}")
+    check(len(visited) == len(set(visited)) and beta0 not in visited
+          and set(stream_engine._fac_cache) == {beta0, *visited},
+          f"adaptive-rho: factorizations {visited} for the visited betas "
+          f"{list(stream_engine._fac_cache)}")
+    check(rho_counts == want_score, f"adaptive-rho: launches {rho_counts}")
+    check_blocks("adaptive-rho", rec["gaussian_block_cuda"], gkern.gaussian_block_cuda,
+                 gref.gaussian_block_ref, K1_ATOL, st_spec, pad_from)
+    del rec
+    # The reference's loop on the same K̃ (the engine's default, no floor;
+    # ROADMAP queue 3): reported, not held.  Outside the counted run; it
+    # launches no kernel (no predict).
+    stream_engine._fac_cache = {beta0: stream_engine.fac}
+    stream_engine.admm = rho_params
+    try:
+        _, (z_ref, _) = stream_engine.train(C)
+        ref_out = (f"{stream_engine.report.iters_run[0]} iterations, "
+                   f"{stream_engine.report.rho_rescales} rescales, final beta "
+                   f"{stream_engine.report.rho_final:g}, duals finite "
+                   f"{bool(torch.isfinite(z_ref).all())}")
+        del z_ref
+    except torch.linalg.LinAlgError as e:     # a factorization of an indefinite K̃ + βI
+        ref_out = f"raised {type(e).__name__}: {str(e)[:120]}"
+    print(f"[adaptive-rho] the reference's loop (rho_guard off) on the same K̃: {ref_out}; "
+          f"betas visited {list(stream_engine._fac_cache)}")
+    stream_engine._fac_cache = {beta0: stream_engine.fac}
+    torch.cuda.empty_cache()
+    # The floor's reason, on this K̃: fixed-β ADMM below and at the floor.
+    # Outside the counted run.
+    probe = beta_probe(stream_engine, rho_floor)
+    print(f"[adaptive-rho] fixed beta on the same K̃: {probe_line(probe)}")
+    check(probe["the floor"][1] and probe["the floor"][2] < ML_MAX_IT,
+          f"adaptive-rho: fixed-beta ADMM at the floor does not converge: {probe}")
+    del stream_engine, model_st, z_st, blobs
+    torch.cuda.empty_cache()
+    # ... and on a second K̃: another size and seed (resident, no scoring)
+    data2 = synthetic.train_test("blobs", FLOOR_N2, N_TEST, seed=FLOOR_SEED2,
+                                 n_features=N_FEATURES, sep=SEP)
+    eng2 = HSSSVMEngine(spec=st_spec, comp=crude, leaf_size=LEAF, device="cuda")
+    eng2.prepare(data2[0], data2[1])
+    floor2 = eng2.rho_floor()
+    probe2 = beta_probe(eng2, floor2)
+    print(f"[adaptive-rho] a second K̃, n={FLOOR_N2} seed {FLOOR_SEED2}: floor {floor2:.4g}; "
+          f"fixed beta {probe_line(probe2)}")
+    check(floor2 > 0.0 and probe2["the floor"][1] and probe2["the floor"][2] < ML_MAX_IT,
+          f"adaptive-rho: fixed-beta ADMM at the second K̃'s floor does not converge: {probe2}")
+    del eng2, data2
+    torch.cuda.empty_cache()
+
+    # [stream-resume]: 2^17 points, checkpointed level by level
+    rdata = synthetic.train_test("blobs", RESUME_N, N_TEST, seed=0, n_features=N_FEATURES,
+                                 sep=SEP)
+    x_pad, _, _, r_levels = tree_mod.pad_dataset(rdata[0], rdata[1].astype(np.float32), LEAF)
+    r_tree = tree_mod.build_tree(x_pad, LEAF, r_levels)
+    xr = x_pad[r_tree.perm]
+
+    def rbuild(on_level=None, **kw):
+        return compression.compress_streamed(
+            xr, r_tree, st_spec, crude, StreamParams(batch_leaves=STREAM_BATCH, **kw),
+            on_level=on_level, device="cuda")
+
+    dirs = [tempfile.mkdtemp(prefix="chip_smoke_resume_") for _ in range(2)]
+    try:
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        hss_a, st_a = rbuild()
+        t_a = time.perf_counter() - t0
+        # the engine's build of the same points, its launches recorded
+        eng_r = HSSSVMEngine(spec=st_spec, comp=crude, leaf_size=LEAF,
+                             admm=ADMMParams(max_it=MAX_IT),
+                             stream=StreamParams(batch_leaves=STREAM_BATCH), device="cuda")
+        compression.compress_streamed = streamed_kept
+        try:
+            with recording(to_host=True) as rec:
+                rep_r = eng_r.prepare(rdata[0], rdata[1])
+                model_r, _ = eng_r.train(C)
+                acc_r = float(np.mean(model_r.predict(rdata[2]).cpu().numpy() == rdata[3]))
+        finally:
+            compression.compress_streamed = orig_streamed
+        t0 = time.perf_counter()
+        hss_b, st_b = rbuild(FailureInjector(fail_at=(RESUME_FAIL_IN_PROCESS,)).check,
+                             ckpt_dir=dirs[0])
+        t_b = time.perf_counter() - t0
+        raised = None
+        try:
+            rbuild(FailureInjector(fail_at=(RESUME_FAIL_FRESH,)).check, ckpt_dir=dirs[1],
+                   max_restarts=0)
+        except InjectedFailure as e:
+            raised = e
+        hss_c, st_c = rbuild(ckpt_dir=dirs[1])
+        torch.cuda.synchronize()
+        resume_counts = dict(_build.launch_counts)
+        disk = [sum(f.stat().st_size for f in Path(d).rglob("*") if f.is_file()) for d in dirs]
+        manifest = Path(dirs[0]) / f"step_{r_levels + 1:08d}" / "manifest.json"
+        codec = json.loads(manifest.read_text())["codec"]
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    eq_b, eq_c = bit_equal(hss_b, hss_a), bit_equal(hss_c, hss_a)
+    eq_eng = bit_equal(stream_calls.pop()[2][0], hss_a)
+    r_batches = streamed_batches(r_levels)
+    leaf_r, level_r = r_batches[0], sum(r_batches[1:])
+    want_r = {name: 0 for name in resume_counts}
+    want_r["gaussian_block"] = 4 * (leaf_r + level_r + 1) + n_blocks
+    want_r["fused_assemble_id"] = 4 * (leaf_r + level_r)
+    have_zstd = importlib.util.find_spec("zstandard") is not None
+    print(f"[stream-resume] n={RESUME_N} padded={r_tree.n} levels={r_levels}: (a) uninterrupted "
+          f"build {t_a:.3f} s ({st_a.n_batches} batches, host up {st_a.upload_s:.3f} s, down "
+          f"{st_a.download_s:.3f} s, level-loop device peak {st_a.device_peak_bytes} bytes); "
+          f"engine batches {rep_r.stream_batches} (need {REF_RESUME['batches']}), kernel_evals "
+          f"{rep_r.kernel_evals} (need {REF_RESUME['kernel_evals']}), its build's every tensor "
+          f"equal to (a): {eq_eng}, accuracy {acc_r:.4f} (need >= {MIN_ACCURACY})")
+    print(f"[stream-resume] (b) failure at level {RESUME_FAIL_IN_PROCESS}, restarted in "
+          f"process: {t_b:.3f} s, restarts {st_b.restarts}, resumed_level {st_b.resumed_level}, "
+          f"every tensor equal to (a): {eq_b}; checkpoints save {st_b.ckpt_save_s:.3f} s, load "
+          f"{st_b.ckpt_load_s:.3f} s, {disk[0]} bytes on disk")
+    print(f"[stream-resume] (c) failure at level {RESUME_FAIL_FRESH} with max_restarts=0 raised "
+          f"{type(raised).__name__}; a fresh call resumed_level {st_c.resumed_level}, restarts "
+          f"{st_c.restarts}, every tensor equal to (a): {eq_c}; its checkpoints save "
+          f"{st_c.ckpt_save_s:.3f} s, load {st_c.ckpt_load_s:.3f} s; {disk[1]} bytes on disk "
+          f"after both calls; codec {codec!r} (zstandard importable: {have_zstd}); launches "
+          f"{json.dumps(resume_counts)}")
+    check(acc_r >= MIN_ACCURACY, f"stream-resume: accuracy {acc_r}")
+    check(rep_r.stream_batches == REF_RESUME["batches"] == leaf_r + level_r + 1
+          and rep_r.kernel_evals == REF_RESUME["kernel_evals"],
+          f"stream-resume: batches {rep_r.stream_batches}, kernel_evals {rep_r.kernel_evals}")
+    check(st_b.restarts == 1 and st_b.resumed_level == RESUME_FAIL_IN_PROCESS and eq_b,
+          "stream-resume: the in-process restart is not bit-identical to the uninterrupted build")
+    check(type(raised) is InjectedFailure, f"stream-resume: the failing call raised {raised!r}")
+    check(st_c.resumed_level == RESUME_FAIL_FRESH and st_c.restarts == 0 and eq_c,
+          "stream-resume: the fresh call's resume is not bit-identical to the uninterrupted build")
+    check(codec == ("zstd" if have_zstd else "raw"), f"stream-resume: codec {codec}")
+    check(resume_counts == want_r, f"stream-resume: launches {resume_counts}, expected {want_r}")
+    check(eq_eng, "stream-resume: the engine's streamed build differs from the uninterrupted one")
+    # every launch of the engine's run (build and scoring); the four builds
+    # above repeat its build bit for bit
+    check_streamed("stream-resume", rec, r_levels, st_spec, float(rdata[0][:, 0].max()))
+    del hss_a, hss_b, hss_c, eng_r, model_r, rdata, x_pad, xr, rec
+    torch.cuda.empty_cache()
+
+    # ---- 17-20. the LM serving path ----------------------------------- #
     lm_kernels, lm_counts = lm_phases(torch, dev)
 
     # ---- 16. summary -------------------------------------------------- #
     by_path = {"main": main_counts, "lap": lap_counts, "accurate": acc_counts,
                "k3-path": k3_counts, "multi": multi_counts, "svr": svr_counts,
-               "oneclass": oc_counts, "gp": gp_counts, "lm": lm_counts}
+               "oneclass": oc_counts, "gp": gp_counts, "stream": stream_counts,
+               "multilevel": ml_counts, "adaptive-rho": rho_counts,
+               "stream-resume": resume_counts, "lm": lm_counts}
 
     def entry(name, source, replaces, path, main_row, rows_all, **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -19,8 +19,9 @@ a Python loop here; the residual traces stay on the device and are stacked
 once at the end.  ``tol`` freezes a problem once its relative residuals
 pass (Boyd §3.3.1), ``ADMMTrace.iters_run`` counts its live iterations and
 ``done0`` seeds the freeze mask.  ``use_fused_update`` runs the z/μ step
-through kernel K3 (γ = 0 and lo = 0 only: the SVM instance).  Adaptive ρ is
-ROADMAP queue 1 item 10.
+through kernel K3 (γ = 0 and lo = 0 only: the SVM instance).
+``admm_boxqp_adaptive`` balances the residuals by rescaling β between
+chunks of iterations (``adaptive_rho_outer``, Boyd §3.4.1).
 """
 from __future__ import annotations
 
@@ -69,16 +70,29 @@ class ADMMTrace(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class ADMMParams:
-    """Iteration control for engine-level ADMM runs (fixed β only)."""
+    """Iteration control for engine-level ADMM runs.
+
+    ``max_it``/``tol`` as in ``admm_boxqp``.  ``adapt_rho`` switches on
+    residual-balancing ρ (Boyd §3.4.1, off by default): the run is cut into
+    ``rho_every``-iteration chunks, and between chunks β is multiplied by
+    ``rho_tau`` when the primal residual exceeds ``rho_mu`` times the dual
+    one (divided in the other case).  β is also the factorization's shift,
+    so each rescale implies a factorization of K̃ + βI (the engine caches
+    one per visited β); ``rho_max_updates`` caps the rescales.
+
+    ``rho_guard`` (the port's own, off by default: off is the reference's
+    loop) stops the downward rescales at the engine's ``rho_floor()``, the
+    β below which ADMM can diverge on an indefinite K̃.
+    """
 
     max_it: int = 10
     tol: float | None = None
     adapt_rho: bool = False
-
-    def __post_init__(self):
-        if self.adapt_rho:
-            raise NotImplementedError(
-                "adaptive rho (ADMMParams.adapt_rho) is ROADMAP queue 1 item 10")
+    rho_every: int = 5
+    rho_mu: float = 10.0
+    rho_tau: float = 2.0
+    rho_max_updates: int = 4
+    rho_guard: bool = False
 
 
 def box_matrix(bound: torch.Tensor | float, d: int, k: int,
@@ -217,6 +231,94 @@ def admm_boxqp(
         done = None
     trace = ADMMTrace(torch.stack(primals), torch.stack(duals), iters, done)
     return ADMMState(x, z, mu), trace
+
+
+def adaptive_rho_outer(
+    run_chunk: Callable,
+    beta0: float,
+    params: ADMMParams,
+    z0: torch.Tensor | None = None,
+    mu0: torch.Tensor | None = None,
+    beta_min: float = 0.0,
+) -> tuple[ADMMState, ADMMTrace, dict]:
+    """Residual-balancing ρ (Boyd §3.4.1) as a host loop over chunks.
+
+    ``run_chunk(beta, n_it, z0, mu0, done0) -> (ADMMState, ADMMTrace)`` runs
+    ``n_it`` iterations at penalty β; the caller owns the factorization of
+    K̃ + βI that a rescale implies.  Between chunks the last live residuals
+    are balanced: primal > ρ_μ·dual ⟹ β ← τβ, dual > ρ_μ·primal ⟹ β ← β/τ,
+    at most ``rho_max_updates`` times.  The UNSCALED multiplier μ is carried
+    across a rescale (it is the β-invariant quantity: Boyd eq. 3.14 rescales
+    the scaled u = μ/β), and the freeze mask is reset, since the relative
+    stopping test moves with β.
+
+    ``beta_min`` floors the downward rescales; a rescale that would take β
+    below it does not happen.  0, the default, is the reference's loop.
+    (The engine passes its ``rho_floor()`` under ``ADMMParams.rho_guard``.)
+
+    Returns (state, trace, info): ``trace.iters_run`` sums the LIVE
+    iterations of all chunks, the residual traces are the chunks' joined,
+    and ``info`` holds the final β and the rescale count.
+    """
+    z, mu, done = z0, mu0, None
+    beta = float(beta0)
+    it_left = int(params.max_it)
+    rescales = 0
+    iters_total = None
+    state = None
+    prs: list[torch.Tensor] = []
+    drs: list[torch.Tensor] = []
+    while it_left > 0:
+        n_it = min(params.rho_every, it_left) if params.adapt_rho else it_left
+        state, trace = run_chunk(beta, n_it, z, mu, done)
+        z, mu, done = state.z, state.mu, trace.done
+        iters_total = (trace.iters_run if iters_total is None
+                       else iters_total + trace.iters_run)
+        prs.append(trace.primal_res)
+        drs.append(trace.dual_res)
+        it_left -= n_it
+        if done is not None and bool(done.all()):
+            break
+        if params.adapt_rho and it_left > 0 and rescales < params.rho_max_updates:
+            pr, dr = trace.primal_res[-1], trace.dual_res[-1]
+            if done is not None:      # balance on LIVE problems only
+                pr = torch.where(done, 0.0, pr)
+                dr = torch.where(done, 0.0, dr)
+            p, d = float(pr.max()), float(dr.max())
+            new_beta = beta
+            if p > params.rho_mu * d:
+                new_beta = beta * params.rho_tau
+            elif d > params.rho_mu * p and beta / params.rho_tau >= beta_min:
+                new_beta = beta / params.rho_tau
+            if new_beta != beta:
+                beta = new_beta
+                rescales += 1
+                done = None
+    trace = ADMMTrace(torch.cat(prs), torch.cat(drs), iters_total, done)
+    return state, trace, dict(beta=beta, rescales=rescales)
+
+
+def admm_boxqp_adaptive(
+    solver_for: Callable[[float], SolverMat],
+    task: BoxQPTask,
+    beta0: float,
+    params: ADMMParams,
+    z0: torch.Tensor | None = None,
+    mu0: torch.Tensor | None = None,
+    beta_min: float = 0.0,
+) -> tuple[ADMMState, ADMMTrace, dict]:
+    """``admm_boxqp`` under the residual-balancing outer loop.
+
+    ``solver_for(beta)`` returns a (d, k)-block solver of (K̃ + βI), cached
+    per visited β by the caller (the engine's ``_fac_for``).  With
+    ``params.adapt_rho`` False this is one plain ``admm_boxqp`` run (plus
+    the info dict).  ``beta_min``: as in ``adaptive_rho_outer``.
+    """
+    def run_chunk(beta, n_it, z, mu, done):
+        return admm_boxqp(solver_for(beta), task, beta, max_it=n_it, tol=params.tol,
+                          z0=z, mu0=mu, done0=done)
+
+    return adaptive_rho_outer(run_chunk, beta0, params, z0=z0, mu0=mu0, beta_min=beta_min)
 
 
 def admm_svm(

@@ -14,11 +14,16 @@ Counterpart of ``repro.core.compression`` (the resident, single-device
   * with ``CompressionParams.rtol`` set, each node's numerical rank is
     detected from the pivoted-QR diagonal decay; the arrays keep the rank
     cap's shape and the truncated slots are exact zeros.
+
+``compress_streamed`` is the out-of-core build (``repro``'s counterpart of
+the same name): the data stay on the host, the device sees one batch of
+nodes at a time, and each completed level can be checkpointed and resumed.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -325,3 +330,319 @@ def compress(
         leaf_ranks=leaf_ranks if adaptive else None,
         level_ranks=tuple(level_ranks) if adaptive else (),
     )
+
+
+# --------------------------------------------------------------------- #
+# streamed (out-of-core) build                                          #
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class StreamParams:
+    """Knobs of the out-of-core streamed build (``compress_streamed``).
+
+    batch_leaves      — nodes per device round trip.  The build's device
+                        working set is O(batch·m·(m + n_proxy)) plus the
+                        batch's outputs, whatever N.  Internal levels take
+                        the same node count, rounded down to even so the
+                        sibling NEAR exchange stays inside a batch.
+    ckpt_dir          — directory of the per-level checkpoints
+                        (``repro_torch.ckpt``); None: no checkpoints, and
+                        the build cannot be resumed.
+    ckpt_every_levels — checkpoint cadence in completed levels (the leaf
+                        stage counts as one).
+    max_restarts      — in-process restart budget of
+                        ``dist.fault.run_resilient``.
+    assemble          — "device": the finished HSS as tensors on the
+                        build's device; "host": as CPU tensors, for callers
+                        that keep or inspect it without a device footprint.
+    """
+
+    batch_leaves: int = 64
+    ckpt_dir: str | None = None
+    ckpt_every_levels: int = 1
+    max_restarts: int = 3
+    assemble: str = "device"
+
+
+@dataclasses.dataclass
+class StreamStats:
+    """What one streamed build did (the reference's record, plus the
+    measurements that only the port takes)."""
+
+    peak_stream_bytes: int = 0      # max over batches of in+out device bytes (a count)
+    n_batches: int = 0
+    resumed_level: int | None = None    # completed levels found on disk
+    restarts: int = 0                   # in-process run_resilient restarts
+    checkpointed_levels: int = 0
+    # Port only.  On a CUDA device: the largest bytes allocated during the
+    # level loop above those allocated when the build began
+    # (torch.cuda.max_memory_allocated after reset_peak_memory_stats; None
+    # elsewhere).  Host seconds: gathering each batch's points and copying
+    # them to the device; copying the outputs back (which waits for the
+    # batch's kernels); writing and reading checkpoints.
+    device_peak_bytes: int | None = None
+    upload_s: float = 0.0
+    download_s: float = 0.0
+    ckpt_save_s: float = 0.0
+    ckpt_load_s: float = 0.0
+
+
+def _stream_leaf_batch(spec, xl, xp, r0, rtol, adaptive):
+    """One node batch of the streamed leaf stage: the diagonal blocks and
+    the proxy-sampled row ID, through the same two seams as ``compress``."""
+    d = _batched_kernel_block(spec, xl, xl)
+    piv, u, rks = _batched_row_id(spec, xl, xp, r0, rtol, adaptive)
+    return d, u, piv, rks
+
+
+def _stream_level_batch(spec, cp, xp, cm, rk, rtol, adaptive):
+    """One node batch of a streamed internal level: the sibling couplings B
+    and the candidate -> proxy row ID.  ``cp`` (b, 2·r_prev, f) candidate
+    points, ``xp`` (b, 2·r_prev + n_far, f) proxy points, ``cm`` candidate
+    liveness (None at fixed rank)."""
+    rp = cp.shape[1] // 2
+    b = _batched_kernel_block(spec, cp[:, :rp], cp[:, rp:])
+    if adaptive:
+        b = _mask_b(b, cm, rp)
+    piv, t, rks = _batched_row_id(spec, cp, xp, rk, rtol, adaptive,
+                                  cmask=cm if adaptive else None)
+    return b, piv, t, rks
+
+
+def _stream_root_batch(spec, cp, cm, adaptive):
+    """The root level stores only the sibling coupling B."""
+    rp = cp.shape[1] // 2
+    b = _batched_kernel_block(spec, cp[:, :rp], cp[:, rp:])
+    if adaptive:
+        b = _mask_b(b, cm, rp)
+    return b
+
+
+def _device_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _stream_fingerprint(n, m, K, spec, params, dtype, device) -> dict:
+    """Identity of a streamed build: a checkpoint of any other problem (data
+    size, tree, kernel, accuracy knobs, dtype, implementation) is never
+    resumed into this one.  ``impl`` names this package and the device
+    type, since the card's kernels and the CPU's plain versions differ in
+    the last bits.  Kept in the manifest's ``extra`` and compared after a
+    JSON round trip, so the values are plain scalars."""
+    return dict(
+        kind="hss_streamed_build", n=int(n), leaf_size=int(m), levels=int(K),
+        rank=int(params.rank), n_near=int(params.n_near),
+        n_far=int(params.n_far), seed=int(params.seed),
+        rtol=None if params.rtol is None else float(params.rtol),
+        kernel=spec.name, h=float(spec.h), impl=f"repro_torch-{device.type}",
+        dtype=str(np.dtype(dtype)))
+
+
+def compress_streamed(
+    x_perm: np.ndarray | torch.Tensor,
+    tree: ClusterTree,
+    spec: KernelSpec,
+    params: CompressionParams = CompressionParams(),
+    stream: StreamParams = StreamParams(),
+    on_level=None,
+    device: str | torch.device = "cuda",
+) -> tuple[HSSMatrix, StreamStats]:
+    """Out-of-core HSS build: the data stay on the host, the device sees one
+    batch of nodes at a time.
+
+    ``compress`` puts the (N, f) data and every level's arrays on the
+    device.  Here the leaf level is walked in ``stream.batch_leaves``-node
+    batches: per batch, gather the batch's points and proxy points from the
+    host array, run the SAME seams (``_batched_kernel_block`` -> K1 or K4,
+    ``_batched_row_id`` -> K2), and copy the results into host
+    accumulators.  Upper levels carry skeleton ids and gather their points
+    from the host per batch, so the device's working set is
+    O(batch·m·(m + n_proxy)) whatever N (``StreamStats.peak_stream_bytes``
+    counts it; on a CUDA device ``device_peak_bytes`` measures it).
+
+    With ``stream.ckpt_dir`` set, each completed level's host state is
+    checkpointed (``repro_torch.ckpt``) and the level loop runs under
+    ``dist.fault.run_resilient``: an interrupted build (in-process through
+    the restart budget, or a fresh call on the same directory) resumes at
+    the last completed level and gives BIT-IDENTICAL output, since the
+    state is saved as raw bytes and each level is a deterministic function
+    of it.  A checkpoint whose fingerprint does not match is ignored.
+
+    The same points reach the same seams in the same order, only the batch
+    axis is cut, so on the CPU the skeletons equal ``compress``'s exactly
+    and ``counting_kernel_evals`` counts the same total.  ``on_level(i)``
+    is called before level i runs (0 is the leaves): the hook of the
+    failure drills.  Returns ``(HSSMatrix, StreamStats)``.
+    """
+    from repro_torch import ckpt
+    from repro_torch.dist.fault import run_resilient
+
+    n, m, K = tree.n, tree.leaf_size, tree.levels
+    n_leaf = 2 ** K
+    if K == 0:
+        raise ValueError("streamed build needs at least one tree level")
+    x_host = x_perm.cpu().numpy() if isinstance(x_perm, torch.Tensor) else x_perm
+    if x_host.shape[0] != n:
+        raise ValueError(f"x has {x_host.shape[0]} rows, tree expects {n}")
+    if stream.assemble not in ("device", "host"):
+        raise ValueError(f"unknown assemble mode {stream.assemble!r}")
+    dev = torch.device(device)
+    r0 = min(params.rank, m)
+    adaptive, rtol = params.rtol is not None, params.rtol
+
+    far_idx = _host_proxy_indices(tree, params)          # host, per level
+    leaf_near = _host_leaf_near(tree, params, x_host)
+    prox0 = np.concatenate([leaf_near, far_idx[0]], axis=1)
+    x_leaves = x_host.reshape(n_leaf, m, -1)
+    stats = StreamStats()
+    fp = _stream_fingerprint(n, m, K, spec, params, x_host.dtype, dev)
+
+    def up(*arrays):
+        t0 = time.perf_counter()
+        out = [torch.as_tensor(a, device=dev) for a in arrays]
+        stats.upload_s += time.perf_counter() - t0
+        return out
+
+    def down(*tensors):
+        t0 = time.perf_counter()
+        out = [t.cpu().numpy() for t in tensors]
+        stats.download_s += time.perf_counter() - t0
+        return out
+
+    def _run_leaves(state: dict) -> dict:
+        bsz = max(1, stream.batch_leaves)
+        d_out = np.empty((n_leaf, m, m), x_host.dtype)
+        u_out = np.empty((n_leaf, m, r0), x_host.dtype)
+        skel_out = np.empty((n_leaf, r0), np.int32)
+        rank_out = np.empty((n_leaf,), np.int32)
+        for s in range(0, n_leaf, bsz):
+            e = min(s + bsz, n_leaf)
+            xl, xp = up(x_leaves[s:e], x_host[prox0[s:e]])
+            d, u, piv, rks = _stream_leaf_batch(spec, xl, xp, r0, rtol, adaptive)
+            stats.peak_stream_bytes = max(stats.peak_stream_bytes,
+                                          _device_bytes(xl, xp, d, u, piv, rks))
+            stats.n_batches += 1
+            d_out[s:e], u_out[s:e], piv_h, rank_out[s:e] = down(d, u, piv, rks)
+            skel_out[s:e] = piv_h + np.arange(s, e, dtype=np.int32)[:, None] * m
+        state = dict(state)
+        state.update(d_leaf=d_out, u_leaf=u_out, skel_leaf=skel_out, ranks_leaf=rank_out)
+        return state
+
+    def _run_level(state: dict, k: int) -> dict:
+        skel_prev = state["skel_leaf"] if k == 1 else state[f"skel_{k - 1}"]
+        rank_prev = state["ranks_leaf"] if k == 1 else state[f"ranks_{k - 1}"]
+        r_prev = skel_prev.shape[1]
+        n_k = 2 ** (K - k)
+        cand = skel_prev.reshape(n_k, 2 * r_prev)
+        # host-side candidate liveness, the rule of hss.rank_mask
+        cm_all = ((np.arange(r_prev)[None, :] < rank_prev[:, None])
+                  .reshape(n_k, 2 * r_prev).astype(x_host.dtype))
+        bsz = max(2, stream.batch_leaves - stream.batch_leaves % 2)
+        state = dict(state)
+        if k == K:                                       # root: B only
+            cp, = up(x_host[cand])
+            cm = up(cm_all)[0] if adaptive else None
+            b = _stream_root_batch(spec, cp, cm, adaptive)
+            stats.peak_stream_bytes = max(stats.peak_stream_bytes, _device_bytes(cp, b))
+            stats.n_batches += 1
+            state[f"b_{k}"], = down(b)
+            return state
+        r_k = min(params.rank, 2 * r_prev)
+        b_out = np.empty((n_k, r_prev, r_prev), x_host.dtype)
+        t_out = np.empty((n_k, 2 * r_prev, r_k), x_host.dtype)
+        skel_out = np.empty((n_k, r_k), np.int32)
+        rank_out = np.empty((n_k,), np.int32)
+        for s in range(0, n_k, bsz):
+            e = min(s + bsz, n_k)                # n_k, bsz even -> e - s even
+            cand_b = cand[s:e]
+            # NEAR proxies: the sibling's candidates, exchanged inside the
+            # batch (batches are even-aligned, so both siblings are in it)
+            sib = cand_b.reshape(-1, 2, 2 * r_prev)[:, ::-1].reshape(e - s, 2 * r_prev)
+            cp, xp = up(x_host[cand_b],
+                        np.concatenate([x_host[sib], x_host[far_idx[k][s:e]]], axis=1))
+            cm = up(cm_all[s:e])[0] if adaptive else None
+            b, piv, t, rks = _stream_level_batch(spec, cp, xp, cm, r_k, rtol, adaptive)
+            stats.peak_stream_bytes = max(stats.peak_stream_bytes,
+                                          _device_bytes(cp, xp, b, piv, t, rks))
+            stats.n_batches += 1
+            b_out[s:e], t_out[s:e], piv_h, rank_out[s:e] = down(b, t, piv, rks)
+            skel_out[s:e] = np.take_along_axis(cand_b, piv_h, axis=1)
+        state.update({f"b_{k}": b_out, f"t_{k}": t_out,
+                      f"skel_{k}": skel_out, f"ranks_{k}": rank_out})
+        return state
+
+    def _step(state: dict, i: int) -> dict:
+        if on_level is not None:
+            on_level(i)
+        return _run_leaves(state) if i == 0 else _run_level(state, i)
+
+    def _save(state: dict, completed: int) -> None:
+        if stream.ckpt_dir is None:
+            return
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(stream.ckpt_dir, state, completed, extra=fp)
+        stats.ckpt_save_s += time.perf_counter() - t0
+        stats.checkpointed_levels = completed
+
+    def _restore():
+        if stream.ckpt_dir is None:
+            return None
+        step = ckpt.latest_step(stream.ckpt_dir)
+        if step is None:
+            return None
+        t0 = time.perf_counter()
+        arrays, got, extra = ckpt.load_checkpoint_arrays(stream.ckpt_dir, step)
+        stats.ckpt_load_s += time.perf_counter() - t0
+        if {key: extra.get(key) for key in fp} != fp:
+            return None                      # someone else's checkpoint
+        stats.resumed_level = got
+        return arrays, got
+
+    on_card = dev.type == "cuda"
+    if on_card:
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    state, report = run_resilient(
+        K + 1, dict, _step, _save, _restore,
+        ckpt_every=stream.ckpt_every_levels if stream.ckpt_dir else 0,
+        max_restarts=stream.max_restarts)
+    stats.restarts = report["restarts"]
+    if on_card:
+        stats.device_peak_bytes = torch.cuda.max_memory_allocated(dev) - base
+
+    # ---------------- assembly ---------------- #
+    if stream.assemble == "host":
+        put = torch.from_numpy
+    else:
+        def put(a):
+            return torch.as_tensor(a, device=dev)
+    hss = HSSMatrix(
+        x=put(x_host),
+        d_leaf=put(state["d_leaf"]),
+        u_leaf=put(state["u_leaf"]),
+        skel_leaf=put(state["skel_leaf"]),
+        transfers=tuple(put(state[f"t_{k}"]) for k in range(1, K)),
+        skels=tuple(put(state[f"skel_{k}"]) for k in range(1, K)),
+        b_mats=tuple(put(state[f"b_{k}"]) for k in range(1, K + 1)),
+        levels=K,
+        leaf_size=m,
+        leaf_ranks=put(state["ranks_leaf"]) if adaptive else None,
+        level_ranks=tuple(put(state[f"ranks_{k}"]) for k in range(1, K)) if adaptive else (),
+    )
+    return hss, stats
+
+
+def compression_error(hss: HSSMatrix, spec: KernelSpec, probes: torch.Tensor
+                      ) -> torch.Tensor:
+    """Stochastic relative Frobenius error ||K̃ − K||_F / ||K||_F.
+
+    ``probes`` (N, n_probe) is the probe block, an argument here (the
+    reference draws it from ``jax.random``).  The exact product goes through
+    the streamed kernel matvec, so K is never materialized.
+    """
+    from repro_torch.core.kernelfn import kernel_matvec_streamed
+
+    probes = probes.to(device=hss.x.device, dtype=hss.x.dtype)
+    kv = kernel_matvec_streamed(spec, hss.x, hss.x, probes)
+    kv_hss = hss.matmat(probes)
+    return torch.linalg.vector_norm(kv_hss - kv) / torch.clamp(
+        torch.linalg.vector_norm(kv), min=1e-30)

@@ -20,8 +20,13 @@ task of the reference on the shared factorization:
     iterations; ``log_marginal`` scores a λ for ``"gp"``.
 
 ``top_eigenpairs``/``spectral_embed`` run Lanczos on K̃ for any prepared
-task.  A mesh (ROADMAP queue 1 item 13), a streamed build, adaptive ρ and
-the multilevel warm start (item 10) raise NotImplementedError.
+task.  ``stream`` takes the out-of-core streamed build in ``prepare``
+(checkpointed and resumable with ``stream.ckpt_dir``); ``admm.adapt_rho``
+balances the residuals by rescaling β, one factorization per visited β (as
+the reference does; ``admm.rho_guard`` adds the port's floor ``rho_floor()``
+against an indefinite K̃);
+``train_multilevel`` warm-starts from a coarse subsample.  A mesh (ROADMAP
+queue 1 item 13) raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ from repro_torch.core.kernelfn import (
     DEFAULT_SCORE_BLOCK, KernelSpec, kernel_matvec_streamed,
 )
 from repro_torch.core.multiclass import class_index, ovo_problems, ovr_problems
-from repro_torch.core.svm import FitReport, build, compute_bias_batched, sync
+from repro_torch.core.svm import FitReport, build, compute_bias_batched, prolong_duals, sync
 
 TASKS = ("svm", "svr", "oneclass", "krr", "gp")
 _REGRESSION = ("svr", "krr", "gp")
@@ -107,7 +112,7 @@ class HSSSVMEngine:
     store_dtype: str | None = None
     task: str = "svm"             # "svm" | "svr" | "oneclass" | "krr" | "gp"
     svr_c: float = 1.0            # SVR box bound C (ε is the train knob)
-    stream: object = None
+    stream: compression.StreamParams | None = None   # out-of-core build
     device: str | torch.device = "cuda"
 
     # populated by prepare():
@@ -122,12 +127,16 @@ class HSSSVMEngine:
     _n_real: int = 0                      # input rows (pads dropped on the way back)
     _perm_host: np.ndarray | None = None  # the tree permutation (host)
     _fac_cache: dict | None = None        # β -> factorization
+    _rho_floor: float | None = None       # adaptive ρ's β floor (``rho_floor``)
+    # the multilevel warm start's inputs (host)
+    _x_raw: np.ndarray | None = None
+    _y_raw: np.ndarray | None = None
+    _xp_host: np.ndarray | None = None    # padded + permuted points
+    _maskp_host: np.ndarray | None = None  # (d,) real-point mask, tree order
 
     def __post_init__(self):
         if self.mesh is not None:
             raise NotImplementedError("a mesh is ROADMAP queue 1 item 13")
-        if self.stream is not None:
-            raise NotImplementedError("the streamed build is ROADMAP queue 1 item 10")
         self.device = torch.device(self.device)
 
     # ------------------------------------------------------------------ #
@@ -178,12 +187,16 @@ class HSSSVMEngine:
 
         beta = self.beta if self.beta is not None else admm_mod.paper_beta(d_real)
         self._hss, self._fac, self._report = build(
-            xp_host, t, maskp, self.spec, self.comp, beta, self.device, self.store_dtype)
+            xp_host, t, maskp, self.spec, self.comp, beta, self.device, self.store_dtype,
+            stream=self.stream)
         self._ys = torch.as_tensor(ys, device=self.device)
         self._pmask = torch.as_tensor(pmasks, device=self.device)
         self._classes, self._pairs = classes, pairs
         self._n_real, self._perm_host = d_real, t.perm
+        self._x_raw, self._y_raw = x, y
+        self._xp_host, self._maskp_host = xp_host, maskp.astype(np.float32)
         self._fac_cache = {float(beta): self._fac}
+        self._rho_floor = None
         return self._report
 
     # ------------------------------------------------------------------ #
@@ -225,7 +238,9 @@ class HSSSVMEngine:
               ) -> tuple[EngineModel, tuple[torch.Tensor, torch.Tensor]]:
         """ONE batched ADMM run over all P subproblems for a fixed knob:
         C for classification, ε for SVR (box bound ``svr_c``), ν for
-        one-class; for KRR/GP, λ and one solve."""
+        one-class; for KRR/GP, λ and one solve.  With ``admm.adapt_rho``
+        the run rescales β between chunks (``admm_boxqp_adaptive``) and the
+        report records the final β and the rescale count."""
         assert self._fac is not None, "call prepare() first"
         if self.task in ("krr", "gp"):
             return self._train_krr(c_value)
@@ -240,9 +255,16 @@ class HSSSVMEngine:
         sync(self.device)
         t0 = time.perf_counter()
         task = self._build_task(ys, pmask, c_value)
-        state, trace = admm_mod.admm_boxqp(
-            fac.solve_mat, task, fac.beta, self.admm.max_it, tol=self.admm.tol,
-            z0=z0, mu0=mu0)
+        rho_info = None
+        if self.admm.adapt_rho:
+            state, trace, rho_info = admm_mod.admm_boxqp_adaptive(
+                lambda b: self._fac_for(b).solve_mat, task, fac.beta, self.admm,
+                z0=z0, mu0=mu0,
+                beta_min=self.rho_floor() if self.admm.rho_guard else 0.0)
+        else:
+            state, trace = admm_mod.admm_boxqp(
+                fac.solve_mat, task, fac.beta, self.admm.max_it, tol=self.admm.tol,
+                z0=z0, mu0=mu0)
         sync(self.device)
         t1 = time.perf_counter()
         z = state.z
@@ -257,6 +279,9 @@ class HSSSVMEngine:
                 self._hss, ys.T, z, c_value * pmask.T, pmask.T)
         self._report.admm_s += t1 - t0
         self._report.iters_run = tuple(int(i) for i in trace.iters_run.tolist())
+        if rho_info is not None:
+            self._report.rho_final = rho_info["beta"]
+            self._report.rho_rescales = rho_info["rescales"]
 
         model = EngineModel(
             x_perm=self._hss.x, z_y=task.sign * z, biases=biases,
@@ -273,6 +298,33 @@ class HSSSVMEngine:
         if self.task == "oneclass":
             return tasks_mod.one_class_task(pmask, knob)
         return admm_mod.svm_task(ys, knob * pmask)
+
+    def rho_floor(self) -> float:
+        """The β below which ADMM can diverge on K̃: 2·|λ_min(K̃)|, with
+        |λ_min| at Lanczos' bound ρ − θ (``lanczos.lowest_eigenvalue``), and
+        0 when that bound says K̃ is positive semidefinite.  Under
+        ``admm.rho_guard`` residual balancing never rescales β below it.
+
+        Why twice: a crude compression of a positive-definite kernel can
+        leave K̃ indefinite, and the x-step then minimizes a nonconvex
+        quadratic.  Near a solution the box blocks every direction of
+        negative curvature, since the minimum sits against it.  Take a
+        blocked eigendirection of K̃ with eigenvalue −|λ|.  One ADMM step
+        (Douglas–Rachford form) multiplies its error by
+        ½(1 − (β + |λ|)/(β − |λ|)) = −|λ|/(β − |λ|): the resolvent's
+        reflection times the box's reflection, −1 on a blocked coordinate.
+        That factor has modulus below 1 only if β > 2|λ|.  Between |λ| and
+        2|λ| the error grows with alternating sign; at β ≤ |λ| the x-step
+        has no minimum at all.  The factor of 2 is the worst case, a
+        direction blocked in every coordinate; the boundaries measured on
+        blobs K̃ lie just below it (tests/test_torch_rho_floor.py;
+        chip_smoke.py's [adaptive-rho]).  Computed once per prepared K̃.
+        The reference has no floor."""
+        assert self._hss is not None, "call prepare() first"
+        if self._rho_floor is None:
+            theta, resid = lanczos_mod.lowest_eigenvalue(self._hss)
+            self._rho_floor = 2.0 * max(0.0, resid - theta)
+        return self._rho_floor
 
     def _fac_for(self, beta: float) -> factorization.HSSFactorization:
         """Factorization of K̃ + βI, cached per visited β (one O(N r²)
@@ -343,9 +395,65 @@ class HSSSVMEngine:
         out[self._perm_host[real]] = emb[real]
         return out
 
-    def train_multilevel(self, c_value: float, **kw):
-        raise NotImplementedError(
-            "the multilevel warm start (prolong_duals) is ROADMAP queue 1 item 10")
+    def train_multilevel(
+        self,
+        c_value: float,
+        coarse_frac: float = 0.125,
+        coarse_comp: compression.CompressionParams | None = None,
+        coarse_leaf_size: int | None = None,
+        seed: int = 0,
+    ) -> tuple[EngineModel, dict]:
+        """AML-SVM-style multilevel warm start (arXiv 2011.02592).
+
+        Train the same task on a ``coarse_frac`` subsample with a CRUDE
+        compression (``CompressionParams.crude`` unless overridden) on a
+        resident engine, prolong the coarse duals to the full point set by
+        nearest-neighbour interpolation (``prolong_duals`` over the padded,
+        permuted host points, times ``tasks.prolong_scale``; fine pads get
+        zero), and let the warm-started ADMM finish: ``FitReport.iters_run``
+        then shows the iterations saved against a cold ``train``.  The
+        subsample is stratified per class for classification, so the coarse
+        problem set (OVR columns / OVO pairs) matches the fine one.
+
+        Returns (model, info) with the coarse size and both iteration
+        records.  Needs ``prepare``; the fine factorization is reused.
+        """
+        assert self._fac is not None, "call prepare() first"
+        x, y = self._x_raw, self._y_raw
+        n = x.shape[0]
+        leaf_c = coarse_leaf_size or min(self.leaf_size, 64)
+        n_c = int(max(min(n, 2 * leaf_c), round(n * coarse_frac)))
+        rng = np.random.default_rng(seed)
+        if self.task == "svm":
+            parts = []
+            for cls in self._classes:
+                rows = np.nonzero(y == cls)[0]
+                want = max(1, int(round(len(rows) * n_c / n)))
+                parts.append(rng.choice(rows, size=min(want, len(rows)), replace=False))
+            idx = np.sort(np.concatenate(parts))
+        else:
+            idx = np.sort(rng.choice(n, size=min(n_c, n), replace=False))
+
+        coarse = HSSSVMEngine(
+            spec=self.spec, comp=coarse_comp or compression.CompressionParams.crude(),
+            leaf_size=leaf_c, beta=self.beta, admm=self.admm, strategy=self.strategy,
+            store_dtype=self.store_dtype, task=self.task, svr_c=self.svr_c,
+            device=self.device)
+        coarse.prepare(x[idx], None if self.task == "oneclass" else y[idx])
+        _, (z_c, mu_c) = coarse.train(c_value)
+
+        scale = tasks_mod.prolong_scale(
+            self.task, int(coarse._maskp_host.sum()), int(self._maskp_host.sum()))
+        mask = self._maskp_host[:, None]          # fine pads carry no dual mass
+        warm = tuple(
+            torch.as_tensor((prolong_duals(coarse._xp_host, v.cpu().numpy(), self._xp_host)
+                             * scale * mask).astype(np.float32), device=self.device)
+            for v in (z_c, mu_c))
+        model, _ = self.train(c_value, warm=warm)
+        info = dict(coarse_n=int(idx.shape[0]),
+                    coarse_iters_run=coarse.report.iters_run,
+                    iters_run=self.report.iters_run)
+        return model, info
 
     # ------------------------------------------------------------------ #
     def train_grid(self, c_values: Sequence[float], warm_start: bool = True

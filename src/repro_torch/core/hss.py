@@ -94,6 +94,15 @@ class HSSMatrix:
                      for r, t in zip(self.level_ranks, self.transfers))
         return leaf, lvls
 
+    def to(self, device) -> "HSSMatrix":
+        """The same matrix with every tensor on ``device``."""
+        def mv(v):
+            if isinstance(v, tuple):
+                return tuple(t.to(device) for t in v)
+            return v.to(device) if isinstance(v, torch.Tensor) else v
+        return dataclasses.replace(self, **{f.name: mv(getattr(self, f.name))
+                                            for f in dataclasses.fields(self)})
+
     def matvec(self, v: torch.Tensor) -> torch.Tensor:
         """K̃ @ v in O(N r) — single-RHS view of ``matmat``."""
         return self.matmat(v[:, None])[:, 0]

@@ -92,6 +92,24 @@ def top_eigenpairs(hss, k: int, num_iters: int | None = None,
     return evals[top], basis[:m].T @ evecs[:, top]
 
 
+def lowest_eigenvalue(hss) -> tuple[float, float]:
+    """K̃'s least eigenvalue as 120 Lanczos steps on ``hss.matvec`` find it:
+    (θ, ρ), the smallest Ritz value and its residual norm |K̃v − θv| for the
+    unit Ritz vector v.  θ never lies below the least eigenvalue λ_min, and
+    some eigenvalue lies within ρ of θ; once the Ritz value has converged to
+    the extreme eigenvalue (Lanczos finds the ends of the spectrum first),
+    λ_min ∈ [θ − ρ, θ].  A compressed K̃ of a positive-definite kernel can
+    be indefinite; this reads by how much."""
+    n = hss.n
+    m = min(n, 120)
+    alphas, betas, basis = lanczos(hss.matvec, start_vector(n, hss.x.device), m)
+    evals, evecs = tridiag_eigh(alphas, betas[:-1])
+    v = basis[:m].T @ evecs[:, 0]
+    v = v / torch.linalg.vector_norm(v)
+    theta = float(evals[0])
+    return theta, float(torch.linalg.vector_norm(hss.matvec(v).float() - theta * v))
+
+
 def spectral_embed(hss, k: int, num_iters: int | None = None,
                    v0: torch.Tensor | None = None, seed: int = 0
                    ) -> tuple[torch.Tensor, torch.Tensor]:

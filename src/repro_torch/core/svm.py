@@ -6,8 +6,9 @@ prediction sign(Σ (z_y)_i K(f_i, f) + b) through streamed kernel blocks.
 Pads (tree.pad_dataset) get the box [0, 0], so the restriction of the ADMM
 fixed point to real points solves the original problem.  Everything a
 trainer builds lives on its ``device`` ("cuda" unless the caller asks for
-another).  ``prolong_duals`` (the multilevel warm start) is ROADMAP queue 1
-item 10.
+another).  ``build`` also takes the out-of-core streamed compression
+(``compression.compress_streamed``), and ``prolong_duals`` lifts a coarse
+problem's duals to the fine points (the engine's multilevel warm start).
 """
 from __future__ import annotations
 
@@ -70,6 +71,18 @@ class FitReport:
     rank_sum_post: int | None = None
     kernel_evals: int | None = None
     iters_run: tuple | None = None
+    # streamed build (compression.StreamStats): the counted peak device bytes
+    # of any one batch, the batch count, and the resume / restart record
+    peak_stream_bytes: int | None = None
+    stream_batches: int | None = None
+    stream_resumed_level: int | None = None
+    stream_restarts: int | None = None
+    # port only: the measured level-loop device peak on a CUDA card
+    # (StreamStats.device_peak_bytes), None elsewhere
+    stream_device_peak_bytes: int | None = None
+    # adaptive ρ, the last train(): the final β and the rescale count
+    rho_final: float | None = None
+    rho_rescales: int | None = None
 
 
 def compute_bias_batched(hss: HSSMatrix, ys: torch.Tensor, z: torch.Tensor,
@@ -104,16 +117,24 @@ def compute_bias(hss: HSSMatrix, y: torch.Tensor, z: torch.Tensor, c_value: floa
 
 def build(x_perm: np.ndarray, tree: tree_mod.ClusterTree, real: np.ndarray,
           spec: KernelSpec, comp: compression.CompressionParams, beta: float,
-          device: torch.device, store_dtype: str | None = None
+          device: torch.device, store_dtype: str | None = None,
+          stream: compression.StreamParams | None = None
           ) -> tuple[HSSMatrix, factorization.HSSFactorization, FitReport]:
     """Compress ONCE and factorize ONCE (Alg. 3 lines 1–6), timed on the host
-    clock around synchronised device work.  An adaptive build is shrunk to
-    its observed ranks before factorizing, so the factorization and every
-    solve run at the detected ranks, and the pad block is made exactly the
-    identity (``hss.inert_pads``; ``real`` is the tree-order mask)."""
+    clock around synchronised device work.  ``stream`` takes the streamed
+    build.  An adaptive build is shrunk to its observed ranks before
+    factorizing, so the factorization and every solve run at the detected
+    ranks, and the pad block is made exactly the identity
+    (``hss.inert_pads``; ``real`` is the tree-order mask)."""
     sync(device)
     t0 = time.perf_counter()
-    hss = compression.compress(x_perm, tree, spec, comp, device=device)
+    sstats = None
+    if stream is not None:
+        hss, sstats = compression.compress_streamed(x_perm, tree, spec, comp, stream,
+                                                    device=device)
+        hss = hss.to(device)       # a host-assembled build factorizes on the device
+    else:
+        hss = compression.compress(x_perm, tree, spec, comp, device=device)
     hss, rank_info = shrink_report(hss)
     hss = inert_pads(hss, torch.as_tensor(real, device=device))
     sync(device)
@@ -124,6 +145,12 @@ def build(x_perm: np.ndarray, tree: tree_mod.ClusterTree, real: np.ndarray,
         compression_s=t1 - t0, factorization_s=time.perf_counter() - t1, admm_s=0.0,
         memory_mb=hss.memory_bytes() / 1e6, hss_levels=tree.levels, beta=beta,
         kernel_evals=compression.kernel_eval_count(tree, comp), **rank_info)
+    if sstats is not None:
+        report.peak_stream_bytes = sstats.peak_stream_bytes
+        report.stream_batches = sstats.n_batches
+        report.stream_resumed_level = sstats.resumed_level
+        report.stream_restarts = sstats.restarts
+        report.stream_device_peak_bytes = sstats.device_peak_bytes
     return hss, fac, report
 
 
@@ -176,6 +203,29 @@ class HSSSVMTrainer:
     def report(self) -> FitReport:
         assert self.engine is not None, "call prepare() first"
         return self.engine.report
+
+
+def prolong_duals(x_coarse: np.ndarray, z_coarse: np.ndarray,
+                  x_fine: np.ndarray) -> np.ndarray:
+    """Nearest-neighbour prolongation of per-point dual columns.
+
+    The AML-SVM multilevel scheme (arXiv 2011.02592): a dual vector trained
+    on a coarse subsample is lifted to the fine set by giving every fine
+    point its nearest coarse point's dual value, so the fine ADMM starts
+    near its fixed point instead of at zero.  ``x_coarse`` (n_c, f) /
+    ``x_fine`` (n_f, f) are point sets in any consistent order, ``z_coarse``
+    is (n_c,) or (n_c, P); returns the matching (n_f, ...) array.
+    Distances are ranked in f32 and the dual VALUES are copied untouched;
+    the KD-tree query runs on every host core (``workers=-1``: the same
+    neighbours as one worker).  Task-dependent mass rescaling is
+    ``tasks.prolong_scale``.
+    """
+    from scipy.spatial import cKDTree
+
+    xc = np.asarray(x_coarse, np.float32)
+    xf = np.asarray(x_fine, np.float32)
+    _, nn = cKDTree(xc).query(xf, k=1, workers=-1)
+    return np.asarray(z_coarse)[nn]
 
 
 def accuracy_score(model, x_val, y_val) -> float:

@@ -1,0 +1,7 @@
+"""Fault tolerance: step deadlines, failure drills, the checkpoint-resume loop."""
+
+from repro_torch.dist.fault import (FailureInjector, InjectedFailure, StepGuard,
+                                    StepTimeout, StragglerEvent, run_resilient)
+
+__all__ = ["FailureInjector", "InjectedFailure", "StepGuard", "StepTimeout",
+           "StragglerEvent", "run_resilient"]

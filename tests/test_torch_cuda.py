@@ -427,3 +427,129 @@ def test_task_engine_on_the_card_matches_the_cpu(dev, task):
     assert (out["cuda"][1] - out["cpu"][1]).abs().max().item() <= 1e-3 * scale
     if task == "ovo":
         assert (out["cuda"][2] == out["cpu"][2]).float().mean().item() >= 0.995
+
+
+# --------------------------------------------------------------------- #
+# the streamed build, its resume and the registry on the card            #
+# --------------------------------------------------------------------- #
+def _stream_problem(n=8192, f=8, leaf=256, seed=0):
+    import numpy as np
+
+    from repro_torch.core import tree as tree_mod
+
+    x = np.random.default_rng(seed).normal(size=(n, f)).astype(np.float32)
+    t = tree_mod.build_tree(x, leaf_size=leaf)
+    return x[t.perm], t
+
+
+def _k2_launches(fn):
+    """Run ``fn`` and return its value with every K2 launch's (args, out)."""
+    rec = []
+    orig = ckern.fused_assemble_id_cuda
+
+    def wrapped(*args, **kw):
+        out = orig(*args, **kw)
+        rec.append((args, out))
+        return out
+
+    ckern.fused_assemble_id_cuda = wrapped
+    try:
+        return fn(), rec
+    finally:
+        ckern.fused_assemble_id_cuda = orig
+
+
+def test_streamed_build_against_resident_on_the_card(dev):
+    """The leaf level of a 16-leaf-batch streamed build (K2 at B = 16, a
+    cluster plan of its own) against the resident build's one launch on the
+    same inputs, through verify.compare_row_ids: each differing node a
+    rounding tie that stays a greedy pivoted QR, R within 1e-4 elsewhere;
+    the two HSS matrices apply to within 1e-3 of |K̃v|."""
+    from repro_torch.core import compression as C
+    from repro_torch.core.kernelfn import KernelSpec
+    from repro_torch.kernels.compress import verify
+
+    xp, t = _stream_problem()
+    spec, params = KernelSpec(h=1.0), C.CompressionParams.crude()
+    res, rec_res = _k2_launches(lambda: C.compress(xp, t, spec, params, device="cuda"))
+    (st, _), rec_st = _k2_launches(lambda: C.compress_streamed(
+        xp, t, spec, params, C.StreamParams(batch_leaves=16), device="cuda"))
+    n_leaf_batches = t.n_leaves // 16
+    leaf = rec_st[:n_leaf_batches]
+    (xc, xpp, cm, k, h, kind), (piv_r, r_r) = rec_res[0]
+    assert torch.equal(torch.cat([a[0] for a, _ in leaf]), xc)
+    assert torch.equal(torch.cat([a[1] for a, _ in leaf]), xpp)
+    piv_s = torch.cat([o[0] for _, o in leaf])
+    r_s = torch.cat([o[1] for _, o in leaf])
+    out = verify.compare_row_ids(xc, xpp, cm, h, kind, params.rtol, piv_s, r_s, piv_r, r_r)
+    assert out["untied"] == 0 and out["off_greedy"] == 0, out
+    assert out["mismatches"] <= 0.001 * out["nodes"] + 1 and out["r_err"] <= 1e-4, out
+    v = _randn((t.n, 2), dev, 50)
+    ref = res.matmat(v)
+    assert (st.matmat(v) - ref).abs().max().item() <= 1e-3 * ref.abs().max().item()
+
+
+def test_streamed_resume_bit_identical_on_the_card(dev, tmp_path):
+    """K1 and K2 are deterministic run to run at one shape and plan, so a
+    build resumed from its level checkpoint equals the uninterrupted one."""
+    from repro_torch.core import compression as C
+    from repro_torch.core.kernelfn import KernelSpec
+    from repro_torch.dist.fault import FailureInjector
+
+    xp, t = _stream_problem()
+    spec, params = KernelSpec(h=1.0), C.CompressionParams.crude()
+    ref, _ = C.compress_streamed(xp, t, spec, params, C.StreamParams(batch_leaves=16),
+                                 device="cuda")
+    hss, stats = C.compress_streamed(
+        xp, t, spec, params, C.StreamParams(batch_leaves=16, ckpt_dir=str(tmp_path)),
+        on_level=FailureInjector(fail_at=(3,)).check, device="cuda")
+    assert stats.restarts == 1 and stats.resumed_level == 3
+    assert stats.device_peak_bytes is not None and stats.device_peak_bytes > 0
+    for name in ("x", "d_leaf", "u_leaf", "skel_leaf", "leaf_ranks"):
+        assert torch.equal(getattr(hss, name), getattr(ref, name)), name
+    for name in ("transfers", "skels", "b_mats", "level_ranks"):
+        assert all(torch.equal(a, b) for a, b in zip(getattr(hss, name), getattr(ref, name)))
+
+
+def test_fused_assemble_id_at_the_streamed_leaf_batch(dev):
+    """K2 at a 16-node streamed leaf batch (m 256, s 64, k 32): the plan
+    keeps 16·C CTAs on at most half the SMs, and every feasible C gives the
+    plain version's pivots and R."""
+    b, m, s, f, k = 16, 256, 64, 8, 32
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    c, _, _ = ckern.plan(b, m, s, k, props.multi_processor_count,
+                         props.shared_memory_per_block_optin)
+    fits = [fc for fc, _, _ in ckern.feasible(m, s, k, b)]
+    assert c == max([fc for fc in fits if b * fc <= props.multi_processor_count // 2]
+                    or fits[:1])
+    xc, xp = _randn((b, m, f), dev, 60), _randn((b, s, f), dev, 61)
+    cmask = torch.ones((b, m), device=dev)
+    piv_ref, r_ref = cref.fused_assemble_id_ref(xc, xp, cmask, k, 1.0)
+    for cluster in fits:
+        piv, r = ckern.fused_assemble_id_cuda(xc, xp, cmask, k, 1.0, cluster=cluster)
+        assert torch.equal(piv, piv_ref), cluster
+        assert (r - r_ref).abs().max().item() <= 1e-4, cluster
+
+
+def test_registry_round_trip_card_to_cpu(dev, tmp_path):
+    """A model trained on the card, saved, loaded on the CPU and on the
+    card: arrays bit-equal, predictions equal."""
+    from repro_torch.core.admm import ADMMParams
+    from repro_torch.core.compression import CompressionParams
+    from repro_torch.core.engine import HSSSVMEngine
+    from repro_torch.core.kernelfn import KernelSpec
+    from repro_torch.data import synthetic
+    from repro_torch.serve import ModelRegistry
+
+    xtr, ytr, xte, _ = synthetic.train_test("blobs", 2048, 512, seed=3, n_features=8, sep=1.6)
+    eng = HSSSVMEngine(spec=KernelSpec(h=1.0), comp=CompressionParams.crude(), leaf_size=128,
+                       admm=ADMMParams(max_it=10), device="cuda")
+    model = eng.fit(xtr, ytr)
+    reg = ModelRegistry(str(tmp_path))
+    reg.save("m", model)
+    for where in ("cpu", "cuda"):
+        back, _ = reg.load("m", device=where)
+        assert back.x_perm.device.type == where
+        for name in ("x_perm", "z_y", "biases"):
+            assert torch.equal(getattr(back, name).cpu(), getattr(model, name).cpu()), name
+        assert torch.equal(back.predict(xte).cpu(), model.predict(xte).cpu()), where

@@ -201,10 +201,7 @@ def test_paper_beta_identical():
 @pytest.mark.parametrize("make", [
     lambda: serve.main(["--task", "svr"]),
     lambda: TEngine(spec=TSpec(), mesh=object(), device="cpu"),
-    lambda: TEngine(spec=TSpec(), stream=object(), device="cpu"),
-    lambda: tadmm.ADMMParams(adapt_rho=True),
-    lambda: TEngine(spec=TSpec(), device="cpu").train_multilevel(1.0),
-], ids=["serve-task", "mesh", "stream", "adapt_rho", "multilevel"])
+], ids=["serve-task", "mesh"])
 def test_calls_outside_the_slice_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         make()
