@@ -1,16 +1,32 @@
-"""Serving entry point of the port: batched LM prefill + greedy decode.
+"""Serving entry point of the port: batched LM prefill + greedy decode, or
+kernel box-QP scoring through the serving tier.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --preset full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --preset tiny \\
       --device cpu --batch 2 --prompt-len 32 --gen 8
 
-The twin of ``repro.launch.serve``'s LM path for the ssm and hybrid
-families: weights from ``Model.init`` with a generator seeded 0 on the
+  PYTHONPATH=src python -m repro_torch.launch.serve --task svm \\
+      --svm-classes 4 --svm-train 8192 --batch 256 --requests 50
+  PYTHONPATH=src python -m repro_torch.launch.serve --task svr|oneclass|krr|gp \\
+      --batch 256 [--registry DIR] [--prune-tol 1e-3] [--serve-dtype bfloat16]
+
+The twin of ``repro.launch.serve``.  The LM path (ssm and hybrid
+families): weights from ``Model.init`` with a generator seeded 0 on the
 serving device, prompt tokens from ``numpy.random.default_rng(0)``, then
 one prefill and ``--gen`` greedy decode steps.  On a CUDA device prefill
-runs K5 (attention) and K6 (the SSD scan); decode runs plain torch.  The
-kernel-model paths (``--task svm`` and the others) are ROADMAP queue 1
-item 11.
+runs K5 (attention) and K6 (the SSD scan); decode runs plain torch.
+
+The kernel paths train one model on ONE shared HSS factorization
+(``HSSSVMEngine``) and serve it through ``serve.ServingEngine``: ``--task
+svm`` is k-class classification, ``svr`` ε-SVR regression values on the
+noisy sine, ``oneclass`` ν one-class novelty scores on blobs with
+outliers, ``krr``/``gp`` kernel ridge / GP posterior-mean values from one
+multi-RHS solve (the knobs are --svm-c, --svm-eps, --svm-nu, --svm-lam).
+``--registry DIR`` round-trips the model through the persistent registry
+(``--prune-tol`` prunes support vectors on load); ``--serve-dtype
+bfloat16`` evaluates the score blocks from bf16 operands.  On a CUDA device
+every f32 tick runs K1 through one captured CUDA graph per bucket.
+``--svm-mesh`` (a mesh) is ROADMAP queue 1 item 13.
 """
 from __future__ import annotations
 
@@ -31,6 +47,8 @@ def _kernel_group(name: str) -> str:
         return "K5 flash_attention"
     if "ssd_chunk" in name:
         return "K6 ssd_chunk"
+    if "pairwise_block" in name:
+        return "K1/K4 pairwise_block"
     if any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "nvjet", "gemv")):
         return "matmul (cuBLAS)"
     return "other (elementwise, reductions, copies)"
@@ -142,6 +160,109 @@ def serve_lm(args) -> dict:
     return out
 
 
+def serve_svm(args) -> dict:
+    """Train one kernel model, serve ``--requests`` requests of ``--batch``
+    points through the serving tier; print and return its numbers."""
+    from repro_torch.core.admm import ADMMParams
+    from repro_torch.core.compression import CompressionParams
+    from repro_torch.core.engine import HSSSVMEngine
+    from repro_torch.core.kernelfn import KernelSpec
+    from repro_torch.core.tasks import oneclass_metrics
+    from repro_torch.data import synthetic
+    from repro_torch.serve import BatchPolicy, ModelRegistry, ServingEngine
+
+    if args.svm_mesh:
+        raise NotImplementedError("--svm-mesh: a mesh is ROADMAP queue 1 item 13")
+    task = args.task
+    device = torch.device(args.device)
+    n_test = max(args.batch, 512)
+    # --svm-h defaults to a task-appropriate value for the built-in demo
+    # dataset; an explicit value always wins.
+    if task in ("svr", "krr", "gp"):
+        xtr, ytr, xte, yte = synthetic.train_test(
+            "noisy_sine", n_train=args.svm_train, n_test=n_test, seed=0, noise=0.1)
+        knob = args.svm_eps if task == "svr" else args.svm_lam
+        h = 1.0 if args.svm_h is None else args.svm_h
+    elif task == "oneclass":
+        xtr, ytr = synthetic.blobs_with_outliers(args.svm_train, n_features=4,
+                                                 outlier_frac=0.1, seed=0)
+        xte, yte = synthetic.blobs_with_outliers(n_test, n_features=4, outlier_frac=0.1,
+                                                 seed=1)
+        knob, h = args.svm_nu, 2.0 if args.svm_h is None else args.svm_h
+    else:
+        xtr, ytr, xte, yte = synthetic.train_test(
+            "multiclass_blobs", n_train=args.svm_train, n_test=n_test, seed=0,
+            n_classes=args.svm_classes, sep=3.0)
+        knob, h = args.svm_c, 1.5 if args.svm_h is None else args.svm_h
+
+    t0 = time.perf_counter()
+    engine = HSSSVMEngine(
+        spec=KernelSpec(h=h), comp=CompressionParams(rank=32, n_near=48, n_far=64),
+        leaf_size=256, admm=ADMMParams(max_it=30 if task == "oneclass" else 10),
+        task=task, svr_c=args.svm_c, device=device)
+    model = engine.fit(xtr, None if task == "oneclass" else ytr, c_value=knob)
+    _sync(device)
+    t_train = time.perf_counter() - t0
+    pred = model.predict(xte).cpu().numpy()
+    out = dict(task=task, device=str(device), n_train=args.svm_train, knob=knob, h=h,
+               train_s=t_train)
+    if task in ("svr", "krr", "gp"):
+        out["rmse"] = float(np.sqrt(np.mean((pred - yte) ** 2)))
+        quality = f"holdout rmse {out['rmse']:.4f}"
+        if task == "svr":
+            head = f"ε-SVR (ε={knob})"
+        else:
+            quality += f", admm iters {engine.report.iters_run}"
+            head = f"{'KRR' if task == 'krr' else 'GP mean'} (λ={knob})"
+    elif task == "oneclass":
+        m = oneclass_metrics(pred, yte)
+        out.update(precision=m["precision"], recall=m["recall"])
+        quality = f"outlier precision {m['precision']:.3f} / recall {m['recall']:.3f}"
+        head = f"one-class SVM (ν={knob})"
+    else:
+        out["accuracy"] = float(np.mean(pred == yte))
+        quality = f"holdout acc {out['accuracy']:.4f}"
+        head = f"{args.svm_classes}-class SVM (C={knob})"
+    rep = engine.report
+    print(f"trained {head} on {args.svm_train} pts in {t_train:.1f}s (compress "
+          f"{rep.compression_s:.1f}s / factor {rep.factorization_s:.2f}s / batched ADMM "
+          f"{rep.admm_s:.2f}s), {quality}")
+
+    # The request loop through the serving tier: ServingEngine.score is the
+    # one scoring entry point for every task decode.  --registry round-trips
+    # the model through the persistent registry first.
+    registry = None
+    if args.registry:
+        registry = ModelRegistry(args.registry)
+        version = registry.save(task, model)
+        print(f"registered model {task!r} v{version} under {args.registry}")
+    serve = ServingEngine(policy=BatchPolicy(compute_dtype=args.serve_dtype),
+                          registry=registry, device=device)
+    mid = (serve.load(task, prune_tol=args.prune_tol) if registry is not None
+           else serve.add_model(model))
+
+    rng = np.random.default_rng(1)
+    serve.score(mid, xte[:args.batch])          # first tick (graph capture) untimed
+    serve.drain_latencies()
+    t_serve = time.perf_counter()
+    for _ in range(args.requests):
+        idx = rng.integers(0, xte.shape[0], size=args.batch)
+        scores, _ = serve.score(mid, xte[idx])
+    t_serve = time.perf_counter() - t_serve
+    lat_ms = np.sort(np.array(serve.drain_latencies())) * 1e3
+    qps = args.requests * args.batch / max(t_serve, 1e-9)
+    p50, p95 = lat_ms[len(lat_ms) // 2], lat_ms[int(len(lat_ms) * 0.95) - 1]
+    per_pass = (f"{args.svm_classes} classes" if task == "svm"
+                else {"svr": "regression values", "krr": "regression values",
+                      "gp": "posterior means", "oneclass": "novelty scores"}[task])
+    print(f"served {args.requests} requests x batch {args.batch}: {qps:.0f} points/s, "
+          f"latency p50 {p50:.2f}ms p95 {p95:.2f}ms ({per_pass} per pass)")
+    out.update(requests=args.requests, batch=args.batch, points_per_s=qps,
+               p50_ms=float(p50), p95_ms=float(p95), last_scores=scores,
+               stats=serve.stats())
+    return out
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", default="lm",
@@ -157,18 +278,39 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile", action="store_true",
                     help="then trace one prefill and one decode step with torch.profiler: "
                          "device time by kernel group and the device's busy share")
+    ap.add_argument("--requests", type=int, default=20)
+    ap.add_argument("--svm-classes", type=int, default=4)
+    ap.add_argument("--svm-train", type=int, default=8192)
+    ap.add_argument("--svm-h", type=float, default=None,
+                    help="kernel bandwidth (default: per-task demo value "
+                         "1.5 svm / 1.0 svr, krr, gp / 2.0 oneclass)")
+    ap.add_argument("--svm-c", type=float, default=1.0,
+                    help="C (svm); the SVR box bound (svr)")
+    ap.add_argument("--svm-eps", type=float, default=0.1, help="ε tube half-width (svr)")
+    ap.add_argument("--svm-nu", type=float, default=0.1,
+                    help="ν outlier-fraction bound (oneclass)")
+    ap.add_argument("--svm-lam", type=float, default=1.0,
+                    help="ridge / GP noise λ (krr and gp)")
+    ap.add_argument("--svm-mesh", action="store_true",
+                    help="mesh-parallel build/serve (not in the port: raises)")
+    ap.add_argument("--registry", default=None,
+                    help="model-registry root: save the trained model there and serve "
+                         "it back through the registry")
+    ap.add_argument("--prune-tol", type=float, default=None,
+                    help="SV-pruning tolerance applied on registry load")
+    ap.add_argument("--serve-dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="serving-tier kernel block compute dtype")
     return ap
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
     ap = parser()
     args = ap.parse_args(argv)
     if args.task != "lm":
-        raise NotImplementedError(f"--task {args.task}: the serving tier is ROADMAP "
-                                  "queue 1 item 11")
+        return serve_svm(args)
     if args.arch is None:
         ap.error("--arch is required for --task lm")
-    serve_lm(args)
+    return serve_lm(args)
 
 
 if __name__ == "__main__":

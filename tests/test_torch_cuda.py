@@ -9,7 +9,9 @@ This file imports torch and the port only, so it runs where jax is absent.
 Tolerances are those of ``chip_smoke.py``, with their reasons there.
 """
 import ctypes
+import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -553,3 +555,155 @@ def test_registry_round_trip_card_to_cpu(dev, tmp_path):
         for name in ("x_perm", "z_y", "biases"):
             assert torch.equal(getattr(back, name).cpu(), getattr(model, name).cpu()), name
         assert torch.equal(back.predict(xte).cpu(), model.predict(xte).cpu()), where
+
+
+def _serve_model(dev, task="ovo", d=4096, f=8, kernel="gaussian", seed=0):
+    """A synthetic model (random coefficients, no training) on ``dev``."""
+    from repro_torch import convert
+
+    r = np.random.default_rng(seed)
+    n_prob = 3 if task in ("ovr", "ovo") else 1
+    return convert.engine_model_from_numpy(
+        x_perm=r.normal(size=(d, f)).astype(np.float32),
+        z_y=(0.3 * r.normal(size=(d, n_prob))).astype(np.float32),
+        biases=(0.1 * r.normal(size=n_prob)).astype(np.float32),
+        classes=np.arange(3.0) if n_prob == 3 else np.array([-1.0, 1.0]), h=1.3,
+        kernel_name=kernel, beta=64.0, binary=task == "binary",
+        strategy="ovo" if task == "ovo" else "ovr",
+        pairs=np.array([[0, 1], [0, 2], [1, 2]]) if task == "ovo" else None, device=dev)
+
+
+@pytest.mark.parametrize("kernel", ["gaussian", "laplacian"])
+def test_serving_graph_replay_equals_the_eager_tick(dev, kernel):
+    """The second tick of a shape replays the graph captured after the first
+    (eager) one: its scores equal an eager run of the same padded chunk bit
+    for bit, and the launch counts advance by the captured launches."""
+    from repro_torch.serve import BatchPolicy, ServingEngine, batched_scores
+
+    model = _serve_model(dev, kernel=kernel)
+    eng = ServingEngine(policy=BatchPolicy(buckets=(16, 64)), device="cuda")
+    mid = eng.add_model(model)
+    name = "laplacian_block" if kernel == "laplacian" else "gaussian_block"
+    xq = np.random.default_rng(1).normal(size=(50, 8)).astype(np.float32)
+    before = _build.launch_counts[name]
+    first, _ = eng.score(mid, xq)                    # eager, then captured
+    assert _build.launch_counts[name] == before + 1
+    assert eng.stats()["graph_captures"] == 1
+    second, _ = eng.score(mid, xq)                   # replayed
+    assert _build.launch_counts[name] == before + 2
+    st = eng.stats()
+    assert st["graph_replays"] == 1 and st["graph_captures"] == 1 and st["scorer_compiles"] == 1
+    g = eng.model_group(mid)
+    pad = np.concatenate([xq, np.zeros((14, 8), np.float32)])
+    eager = batched_scores(torch.as_tensor(pad, device=dev), g.xs_dev, g.zy_dev,
+                           g.biases_dev, spec=g.spec, block=64)[:50].cpu().numpy()
+    assert np.array_equal(second, eager) and np.array_equal(first, eager)
+    ref = model.decision_function(xq).cpu().numpy()
+    assert np.abs(second - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_serving_bf16_scorer_products_come_back_f32(dev):
+    """The bf16 Gaussian scorer multiplies bf16-rounded operands in f32: it
+    matches the f64 evaluation of those operands to f32 rounding."""
+    from repro_torch.serve import batched_scores
+
+    model = _serve_model(dev, task="ovr")
+    xq = _randn((64, 8), dev, 5)
+    got = batched_scores(xq, model.x_perm, model.z_y, model.biases, spec=model.spec,
+                         block=32, compute_dtype="bfloat16")
+    assert got.dtype == torch.float32
+    r = lambda t: t.to(torch.bfloat16).double()
+    a, b, v = r(xq), r(model.x_perm), r(model.z_y)
+    sq = ((a * a).sum(1)[:, None] + (b * b).sum(1)[None, :] - 2 * a @ b.T).clamp(min=0)
+    want = torch.exp(-sq / (2 * 1.3 ** 2)) @ v + model.biases.double()
+    assert (got.double() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_serving_eviction_recaptures_and_scores_the_same(dev):
+    """An evicted group drops its graphs with its tensors; re-uploaded, it
+    captures again and scores as before."""
+    from repro_torch.serve import BatchPolicy, ServingEngine
+
+    eng = ServingEngine(policy=BatchPolicy(buckets=(32,)), max_resident=1, device="cuda")
+    ia = eng.add_model(_serve_model(dev, task="binary", seed=1))
+    ib = eng.add_model(_serve_model(dev, task="binary", seed=2))
+    xq = np.random.default_rng(3).normal(size=(20, 8)).astype(np.float32)
+    a1, _ = eng.score(ia, xq)
+    a2, _ = eng.score(ia, xq)
+    eng.score(ib, xq)                               # evicts a, and a's graph
+    assert eng.model_group(ia).graphs == {} and eng.stats()["evictions"] == 1
+    a3, _ = eng.score(ia, xq)                       # re-upload, recapture
+    a4, _ = eng.score(ia, xq)                       # replay of the new graph
+    st = eng.stats()
+    assert (st["support_uploads"], st["graph_captures"], st["graph_replays"]) == (3, 3, 2)
+    assert st["scorer_compiles"] == 1
+    assert np.array_equal(a1, a2) and np.array_equal(a1, a3) and np.array_equal(a1, a4)
+
+
+def test_serving_appended_columns_drop_the_groups_graphs(dev):
+    """A model joining a group replaces its column block: the group's graphs
+    go, and the next tick scores both models."""
+    from repro_torch.serve import BatchPolicy, ServingEngine
+
+    base = _serve_model(dev, task="ovr")
+    eng = ServingEngine(policy=BatchPolicy(buckets=(32,)), device="cuda")
+    i1 = eng.add_model(base)
+    xq = np.random.default_rng(4).normal(size=(32, 8)).astype(np.float32)
+    s1, _ = eng.score(i1, xq)
+    assert len(eng.model_group(i1).graphs) == 1
+    other = dataclasses.replace(base, z_y=2.0 * base.z_y)
+    i2 = eng.add_model(other)
+    assert eng.model_group(i1).graphs == {}
+    t1, t2 = eng.submit(i1, xq), eng.submit(i2, xq)
+    eng.flush()
+    assert np.abs(t1.result(0)[0] - s1).max() <= 1e-6 * np.abs(s1).max()
+    ref = other.decision_function(xq).cpu().numpy()
+    assert np.abs(t2.result(0)[0] - ref).max() <= 1e-5 * np.abs(ref).max()
+    assert eng.stats()["scorer_compiles"] == 2
+
+
+def test_dense_baseline_on_the_card_matches_the_cpu(dev):
+    """dense_admm_fit and nystrom_admm_fit at 1024 points: the card (K1,
+    cuSOLVER) against the CPU (plain versions, LAPACK).  Nyström is held
+    to 1e-3 (chip_smoke.py's BASE_NYSTROM_ATOL: its W^{-1/2} amplifies
+    f32 rounding ~1e4-fold), the dense fit to 1e-4."""
+    from repro_torch.core import baselines as pb
+    from repro_torch.core.kernelfn import KernelSpec
+    from repro_torch.data import synthetic
+
+    xtr, ytr, xte, _ = synthetic.train_test("circles", 1024, 256, seed=1, n_features=4,
+                                            gap=0.8)
+    spec = KernelSpec(h=1.0)
+    lm = pb.nystrom_landmarks(1024, 256, seed=0)
+    for fit, kw, tol in ((pb.dense_admm_fit, {}, 1e-4),
+                         (pb.nystrom_admm_fit, dict(landmarks=lm), 1e-3)):
+        res = {}
+        for where in ("cpu", "cuda"):
+            x, y = torch.as_tensor(xtr, device=where), torch.as_tensor(ytr, device=where)
+            z, b = fit(x, y, spec, 1.0, 100.0, **kw)
+            pred = pb.dense_predict(x, y, z, b, spec, torch.as_tensor(xte, device=where))
+            res[where] = z.cpu(), float(b), pred.cpu()
+        (zc, bc, pc), (zg, bg, pg) = res["cpu"], res["cuda"]
+        assert (zc - zg).abs().max().item() <= tol and abs(bc - bg) <= tol, fit.__name__
+        assert (pc == pg).float().mean().item() >= 0.99, fit.__name__
+
+
+def test_serving_threaded_driver_captures_on_its_thread(dev):
+    """The max-wait driver thread captures and replays the graphs; its
+    ticks score as the caller's own ticks do."""
+    from repro_torch.serve import BatchPolicy, ServingEngine
+
+    model = _serve_model(dev, task="binary", seed=5)
+    xq = [np.random.default_rng(s).normal(size=(3, 8)).astype(np.float32) for s in range(6)]
+    sync = ServingEngine(policy=BatchPolicy(buckets=(8,)), device="cuda")
+    want = [sync.score(sync.add_model(model, model_id="m"), q)[0] for q in xq[:1]]
+    want += [sync.score("m", q)[0] for q in xq[1:]]
+    eng = ServingEngine(policy=BatchPolicy(buckets=(8,), max_wait_ms=1.0), device="cuda")
+    mid = eng.add_model(model)
+    eng.start()
+    try:
+        got = [eng.submit(mid, q).result(timeout=30.0)[0] for q in xq]
+    finally:
+        eng.stop()
+    assert not eng.running and eng.stats()["graph_captures"] == 1
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))

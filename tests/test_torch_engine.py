@@ -24,7 +24,6 @@ from repro_torch.core import svm as tsvm
 from repro_torch.core.compression import CompressionParams as TParams
 from repro_torch.core.engine import HSSSVMEngine as TEngine
 from repro_torch.core.kernelfn import KernelSpec as TSpec
-from repro_torch.launch import serve
 
 torch.set_float32_matmul_precision("highest")
 
@@ -199,9 +198,8 @@ def test_paper_beta_identical():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: serve.main(["--task", "svr"]),
     lambda: TEngine(spec=TSpec(), mesh=object(), device="cpu"),
-], ids=["serve-task", "mesh"])
+], ids=["mesh"])
 def test_calls_outside_the_slice_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         make()

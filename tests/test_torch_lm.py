@@ -322,8 +322,3 @@ def test_serve_tiny_on_cpu(capsys):
     assert torch.isfinite(out["last_logits"]).all()
     printed = capsys.readouterr().out
     assert "prefill: 2x16" in printed and "tok/s" in printed
-
-
-def test_serve_svm_task_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        serve.main(["--task", "svm"])
