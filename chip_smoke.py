@@ -105,7 +105,9 @@ Phases, each printed on its own lines, none of them allowed to fail:
                  zamba2 path's shape (4 x 32 x 1024 x 64 bf16, causal; SDPA
                  timed beside it), gemma2-9b's local layer (H16/KV8, D256,
                  window 4096 on S 8192, softcap 50), hubert-xlarge's D80
-                 non-causal and paligemma-3b's MQA D256 prefix-LM; K6 (the SSD
+                 non-causal and paligemma-3b's MQA D256 prefix-LM, and at
+                 the shapes of phases 21-23 (SDPA beside each but gemma2's
+                 softcap, which SDPA cannot compute); K6 (the SSD
                  chunk scan) at the path's shape and mamba2-780m's (N 128),
                  bf16 (x, B and C as views of one xBC tensor, as the model
                  hands them over) and f32, y and the final state.  Kernel,
@@ -120,7 +122,25 @@ Phases, each printed on its own lines, none of them allowed to fail:
                  times, decode neither; then again after a warm-up prefill.
                  Then [check lm]: every K5 and K6 launch of the path run again
                  by the plain version on the path's own inputs;
- 20. summary   — one JSON line {"kernels": [...]}, then the last line
+ 21. lm-dense  — the serving entry point at gemma2-9b's full width and
+                 depth, bf16, batch 2, prompt 4608 (past the even layers'
+                 4096 window), 32 generated tokens: prefill runs K5 42
+                 times (21 windowed, every one softcapped), decode none;
+                 then again after a warm-up prefill, with --profile.  Then
+                 [check lm-dense]: one more prefill whose every K5 launch is
+                 held against the plain version as it runs (a batch row and
+                 a kv head at a time; only the error is kept);
+ 22. lm-moe    — the same for granite-moe-3b-a800m (40 experts, top 8),
+                 batch 4, prompt 1024, 32 tokens: K5 32 times a prefill;
+                 [check lm-moe] replays every launch; then one layer's
+                 moe_block and one f32 expert product (beside the bf16 one)
+                 timed at the path's shape;
+ 23. lm-families-small — gemma2-9b, granite-moe-3b-a800m, paligemma-3b
+                 (256 patches + 64 tokens) and hubert-xlarge (forward_logits
+                 of 512 masked frames) at full width, 2 layers, bf16: the
+                 card against the CPU with the same weights, prefill and 4
+                 teacher-forced decode steps; the logits agree;
+ 24. summary   — one JSON line {"kernels": [...]}, then the last line
                  {"ok": true, "device": {...}}.
 Every path runs with the launch counts set to 0 just before it, and checks
 each count just after it against what the code implies; the launches of the
@@ -135,6 +155,7 @@ import contextlib
 import dataclasses
 import importlib.util
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -857,7 +878,20 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "zamba2-1.2b", 4, 1024, 32
 LM_SMALL_LAYERS, LM_SMALL_PROMPT, LM_SMALL_STEPS = 6, 256, 4
 BF16_TC_FLOP_PER_S = 989e12     # dense bf16 tensor-core rate (data sheet)
 K5_F32_RTOL = 5e-5   # f32 products summed in another order, of the largest output
-K5_BF16_RTOL = 2.0 ** -8   # both round one f32 result to bf16: one bf16 step
+# bf16: kernel and plain version round the same f32 result to bf16, so an
+# output may differ by one rounding step where their two f32 values straddle
+# a rounding boundary.  bf16 has 8 significant bits: at the largest |output|
+# (at least 1) a step is 2^(floor(log2) - 7), between 2^-8 and 2^-7 of it.
+# (Read as 2^-8 of the largest output until slice 7, which is less than one
+# step above a power of 2: gemma2's path showed exactly one step, 2^-6 at an
+# output in [2, 4), against a largest output of 3.39.)
+
+
+def k5_bf16_tol(scale: float) -> float:
+    """One bf16 rounding step at ``scale`` = max(1, the largest |output|)."""
+    return 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
 K6_RTOL = 1e-4       # f32 chunk sums in another order (the JAX SSD test's rtol)
 # The card against the CPU, the same f32 model: f32 reductions in other orders
 # through 6 layers, one attention and two SSD chunks (the CPU tests see 1e-6
@@ -878,6 +912,15 @@ K5_CASES = [
     ("hubert-xlarge", (2, 16, 16, 1024, 80), 10, "full", dict(causal=False)),
     ("paligemma-3b prefix-LM", (2, 8, 1, 512, 256), 10, "prefix",
      dict(causal=True, prefix_len=256)),
+    # the shapes of the attention families' paths below
+    ("gemma2-9b path, local layer", (2, 16, 8, 4608, 256), 5, None,
+     dict(causal=True, window=4096, softcap=50.0)),
+    ("gemma2-9b path, global layer", (2, 16, 8, 4608, 256), 5, None,
+     dict(causal=True, softcap=50.0)),
+    ("granite-moe path", (4, 24, 8, 1024, 64), 20, "causal", dict(causal=True)),
+    ("paligemma-3b small path", (1, 8, 1, 320, 256), 20, "prefix",
+     dict(causal=True, prefix_len=256)),
+    ("hubert-xlarge small path", (1, 16, 16, 512, 80), 20, "full", dict(causal=False)),
 ]
 # K6's cases: (label, (B, S, H, P, G, N, chunk), timing repeats, type of x, B
 # and C).  bf16 first, as a bf16 model hands them over (views of one xBC
@@ -936,80 +979,176 @@ def k6_cost(b, s, h, p, g, n, q, elem_bytes):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def errs(out, ref):
+    """(max |out - ref|, the scale max(1, max |ref|) its tolerance is of)."""
+    out, ref = out.float(), ref.float()
+    return (out - ref).abs().max().item(), max(1.0, ref.abs().max().item())
+
+
+def rel_err(out, ref):
+    err, scale = errs(out, ref)
+    return err / scale
+
+
+def sdpa_call(torch, dev, kind, h, kvh, s, opts):
+    """The one SDPA call that computes K5's function, or None: "causal",
+    "full", or "prefix" (the prefix-LM mask as a boolean mask); GQA through
+    ``enable_gqa`` where the heads are grouped."""
+    import torch.nn.functional as F
+
+    if kind is None:
+        return None
+    kw = dict(enable_gqa=True) if h != kvh else {}
+    if kind == "causal":
+        kw["is_causal"] = True
+    elif kind == "prefix":
+        from repro_torch.kernels.attention import ref as attn_ref
+        pos = torch.arange(s, device=dev)
+        kw["attn_mask"] = attn_ref.visible(pos, pos, True, None, opts["prefix_len"])
+    return lambda q, k, v: F.scaled_dot_product_attention(q, k, v, **kw)
+
+
+def k5_case(torch, dev, label, b, h, kvh, s, d, dtype, reps, sdpa=None, **opts):
+    """K5 against its plain version (and ``sdpa``, the library's call) on
+    random q (B, H, S, D), k and v (B, KV, S, D): error, kernel, plain,
+    SDPA and bound ms."""
+    from repro_torch.kernels.attention import ops as attn_ops, ref as attn_ref
+
+    def randn(shape, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(shape, device=dev, generator=g).to(dtype)
+
+    q, k, v = (randn((b, n_, s, d), seed) for n_, seed in ((h, 40), (kvh, 41), (kvh, 42)))
+    out = attn_ops.flash_attention(q, k, v, **opts)
+    ref = attn_ref.attention_ref(q, k, v, **opts)
+    err, scale = errs(out, ref)
+    del out, ref
+    torch.cuda.empty_cache()
+    tol = K5_F32_RTOL * scale if dtype == torch.float32 else k5_bf16_tol(scale)
+    ms = time_ms(torch, lambda: attn_ops.flash_attention(q, k, v, **opts), reps)
+    plain = time_ms(torch, lambda: attn_ref.attention_ref(q, k, v, **opts), 1)
+    torch.cuda.empty_cache()
+    lib = None
+    if sdpa is not None:
+        # the same function, up to SDPA's own bf16 rounding of P
+        err_lib = rel_err(sdpa(q, k, v), attn_ref.attention_ref(q, k, v, **opts))
+        check(err_lib <= SDPA_RTOL, f"K5 {label}: SDPA does not compute the same "
+              f"function here ({err_lib})")
+        lib = time_ms(torch, lambda: sdpa(q, k, v), reps)
+    pos = torch.arange(s, device=dev)
+    pairs = int(attn_ref.visible(pos, pos, opts.get("causal", True), opts.get("window"),
+                                 opts.get("prefix_len", 0)).sum())
+    bms, by = k5_cost(b, h, kvh, s, d, q.element_size(), pairs)
+    print(f"[kernels] K5 flash_attention {label} q ({b},{h},{s},{d}) kv {kvh} "
+          f"{str(dtype).replace('torch.', '')} {opts}: max_abs_err {err:.3e} "
+          f"(tol {tol:.3g}, largest |output| {scale:.3g}), kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, SDPA "
+          f"{'-' if lib is None else f'{lib:.4f}'} ms, bound {bms:.4f} ms ({by})")
+    check(err <= tol, f"K5 {label} disagrees with its plain version: {err}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib)
+
+
+def lm_argv(arch, batch, prompt, gen, dev):
+    """``launch.serve``'s arguments for ``arch`` at full size."""
+    return ["--arch", arch, "--preset", "full", "--batch", str(batch), "--prompt-len",
+            str(prompt), "--gen", str(gen), "--device", str(dev)]
+
+
+def recorder(rec: list):
+    """Wraps a launcher so that each call's (args, kw, out) lands in ``rec``."""
+    def make(fn):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            rec.append((args, kw, out))
+            return out
+        return wrapped
+    return make
+
+
+def serve_twice(torch, tag, argv, wraps=()):
+    """The serving entry point cold, with the launch counts zeroed just
+    before and read just after and each (module, launcher, wrapper) of
+    ``wraps`` in place meanwhile; then a steady-state reading: the same
+    entry point after one untimed prefill, with a torch.profiler trace of
+    one prefill and one decode step.  Returns (the cold result, its counts)."""
+    import numpy as np
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in wraps]
+    for mod, name, make in wraps:
+        setattr(mod, name, make(getattr(mod, name)))
+    try:
+        _build.reset_launch_counts()
+        res = serve.serve_lm(serve.parser().parse_args(argv))
+        counts = dict(_build.launch_counts)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    print(f"[{tag}] {res['arch']} {res['n_layers']} layers d_model {res['d_model']} "
+          f"{res['compute_dtype']}, batch {res['batch']}, prompt {res['prompt_len']}, gen "
+          f"{res['gen']}: prefill_ms {res['prefill_ms']:.3f}, decode_ms {res['decode_ms']:.3f}, "
+          f"tok_per_s {res['tok_per_s']:.1f}, peak_device_bytes {res['peak_device_bytes']}; "
+          f"launches prefill {json.dumps(res['launches_prefill'])} decode "
+          f"{json.dumps(res['launches_decode'])}")
+    print(f"[{tag}] sample token ids {res['tokens'][0][:12].tolist()}")
+    torch.cuda.empty_cache()
+    res2 = serve.serve_lm(serve.parser().parse_args(argv + ["--warmup", "1", "--profile"]))
+    print(f"[{tag}] after a warm-up prefill: prefill_ms {res2['prefill_ms']:.3f}, decode_ms "
+          f"{res2['decode_ms']:.3f}, tok_per_s {res2['tok_per_s']:.1f}, peak_device_bytes "
+          f"{res2['peak_device_bytes']}; the same tokens as the first run: "
+          f"{bool(np.array_equal(res2['tokens'], res['tokens']))}")
+    del res2
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def check_served(torch, tag, res, counts, vocab, want_prefill):
+    """Finite logits, token ids of the vocabulary, the launches of
+    ``want_prefill`` in prefill (the other kernels none), none in decode."""
+    toks = res["tokens"]
+    check(toks.shape == (res["batch"], res["gen"]) and ((toks >= 0) & (toks < vocab)).all(),
+          f"{tag}: generated tokens are not ids of the vocabulary")
+    check(bool(torch.isfinite(res["last_logits"]).all()), f"{tag}: non-finite logits")
+    want = {name: 0 for name in counts}
+    want_pre = dict(want, **want_prefill)
+    check(res["launches_prefill"] == want_pre and res["launches_decode"] == want
+          and counts == want_pre,
+          f"{tag}: launches {counts} (prefill {res['launches_prefill']}, decode "
+          f"{res['launches_decode']}), expected prefill {want_pre} and none in decode")
+
+
+def k5_replay(rec):
+    """Every recorded K5 launch against the plain version on its own inputs:
+    (max |error|, the worst launch's error in bf16 steps)."""
+    from repro_torch.kernels.attention import ref as attn_ref
+
+    abs_ = steps = 0.0
+    for args, kw, out in rec:
+        err, scale = errs(out, attn_ref.attention_ref(*args, **kw))
+        abs_, steps = max(abs_, err), max(steps, err / k5_bf16_tol(scale))
+    return abs_, steps
+
+
 def lm_phases(torch, dev):
     """[kernels] K5 and K6 against their plain versions, [lm-small], [lm] and
     [check lm].  Returns the kernels' summary entries and the path's counts."""
     import numpy as np
-    import torch.nn.functional as F
 
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import _build
-    from repro_torch.kernels.attention import kernel as attn_kern, ops as attn_ops
-    from repro_torch.kernels.attention import ref as attn_ref
+    from repro_torch.kernels.attention import kernel as attn_kern
     from repro_torch.kernels.ssd import kernel as ssd_kern, ops as ssd_ops, ref as ssd_ref
-    from repro_torch.launch import serve
     from repro_torch.models.transformer import Model
 
-    def randn(shape, seed, dtype=torch.float32):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        return torch.randn(shape, device=dev, generator=g).to(dtype)
-
-    def errs(out, ref):
-        """(max |out - ref|, the scale max(1, max |ref|) its tolerance is of)."""
-        out, ref = out.float(), ref.float()
-        return (out - ref).abs().max().item(), max(1.0, ref.abs().max().item())
-
-    def rel_err(out, ref):
-        err, scale = errs(out, ref)
-        return err / scale
-
     # ---- K5 at the path's shape and the repo's other attention shapes --- #
-    def k5_case(label, b, h, kvh, s, d, dtype, reps, sdpa=None, **opts):
-        q, k, v = (randn((b, n_, s, d), seed, dtype)
-                   for n_, seed in ((h, 40), (kvh, 41), (kvh, 42)))
-        out = attn_ops.flash_attention(q, k, v, **opts)
-        ref = attn_ref.attention_ref(q, k, v, **opts)
-        err, scale = errs(out, ref)
-        del out, ref
-        torch.cuda.empty_cache()
-        tol = K5_F32_RTOL if dtype == torch.float32 else K5_BF16_RTOL
-        ms = time_ms(torch, lambda: attn_ops.flash_attention(q, k, v, **opts), reps)
-        plain = time_ms(torch, lambda: attn_ref.attention_ref(q, k, v, **opts), 1)
-        torch.cuda.empty_cache()
-        lib = None
-        if sdpa is not None:
-            # the same function, up to SDPA's own bf16 rounding of P
-            err_lib = rel_err(sdpa(q, k, v), attn_ref.attention_ref(q, k, v, **opts))
-            check(err_lib <= SDPA_RTOL, f"K5 {label}: SDPA does not compute the same "
-                  f"function here ({err_lib})")
-            lib = time_ms(torch, lambda: sdpa(q, k, v), reps)
-        pos = torch.arange(s, device=dev)
-        pairs = int(attn_ref.visible(pos, pos, opts.get("causal", True), opts.get("window"),
-                                     opts.get("prefix_len", 0)).sum())
-        bms, by = k5_cost(b, h, kvh, s, d, q.element_size(), pairs)
-        print(f"[kernels] K5 flash_attention {label} q ({b},{h},{s},{d}) kv {kvh} "
-              f"{str(dtype).replace('torch.', '')} {opts}: max_abs_err {err:.3e} "
-              f"(tol {tol:g} x {scale:.3g}), kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA "
-              f"{'-' if lib is None else f'{lib:.4f}'} ms, bound {bms:.4f} ms ({by})")
-        check(err <= tol * scale, f"K5 {label} disagrees with its plain version: {err}")
-        del q, k, v
-        torch.cuda.empty_cache()
-        return dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                    bound_by=by, library_ms=lib)
-
-    sdpa_calls = {
-        "causal": lambda q, k, v: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-        "full": lambda q, k, v: F.scaled_dot_product_attention(q, k, v),
-    }
-    k5_rows = []
-    for label, (b, h, kvh, s, d), reps, sdpa, opts in K5_CASES:
-        fn = sdpa_calls.get(sdpa)
-        if sdpa == "prefix":      # the prefix-LM mask as a boolean mask, MQA
-            mask = attn_ref.visible(torch.arange(s, device=dev), torch.arange(s, device=dev),
-                                    True, None, opts["prefix_len"])
-            fn = lambda q, k, v, m=mask: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=m, enable_gqa=True)
-        k5_rows.append(k5_case(label, b, h, kvh, s, d, torch.bfloat16, reps, sdpa=fn, **opts))
+    k5_rows = [k5_case(torch, dev, label, b, h, kvh, s_, d, torch.bfloat16, reps,
+                       sdpa=sdpa_call(torch, dev, sdpa, h, kvh, s_, opts), **opts)
+               for label, (b, h, kvh, s_, d), reps, sdpa, opts in K5_CASES]
 
     # ---- K6 at the path's shape and mamba2-780m's, bf16 and f32 ---------- #
     def ssd_inputs(b, s, h, p, g, n, seed, dtype):
@@ -1132,72 +1271,36 @@ def lm_phases(torch, dev):
           f"lm-small-bf16: K6 took {rec6}, not the model's bf16")
 
     # ---- [lm]: the serving entry point at full width and depth ----------- #
-    rec = {"flash_attention_cuda": [], "ssd_chunk_cuda": []}
-    saved = [(attn_kern, "flash_attention_cuda"), (ssd_kern, "ssd_chunk_cuda")]
-    originals = [getattr(mod, name) for mod, name in saved]
-    for (mod, name), fn in zip(saved, originals):
-        def wrapped(*args, _fn=fn, _name=name, **kw):
-            out = _fn(*args, **kw)
-            rec[_name].append((args, kw, out))
-            return out
-        setattr(mod, name, wrapped)
-    argv = ["--arch", LM_ARCH, "--preset", "full", "--batch", str(LM_BATCH),
-            "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN), "--device", str(dev)]
-    try:
-        _build.reset_launch_counts()
-        res = serve.serve_lm(serve.parser().parse_args(argv))
-        lm_counts = dict(_build.launch_counts)
-    finally:
-        for (mod, name), fn in zip(saved, originals):
-            setattr(mod, name, fn)
+    rec5, rec6 = [], []
     cfg = get_config(LM_ARCH)
     napp = cfg.n_layers // cfg.shared_attn_every
-    print(f"[lm] {LM_ARCH} {cfg.n_layers} layers d_model {cfg.d_model} {res['compute_dtype']}, "
-          f"batch {LM_BATCH}, prompt {LM_PROMPT}, gen {LM_GEN}: prefill_ms "
-          f"{res['prefill_ms']:.3f}, decode_ms {res['decode_ms']:.3f}, tok_per_s "
-          f"{res['tok_per_s']:.1f}, peak_device_bytes {res['peak_device_bytes']}; launches "
-          f"prefill "
-          f"{json.dumps(res['launches_prefill'])} decode {json.dumps(res['launches_decode'])}")
-    print(f"[lm] sample token ids {res['tokens'][0][:12].tolist()}")
-    toks_lm = res["tokens"]
-    check(toks_lm.shape == (LM_BATCH, LM_GEN) and ((toks_lm >= 0) & (toks_lm < cfg.vocab)).all(),
-          "lm: generated tokens are not ids of the vocabulary")
-    check(bool(torch.isfinite(res["last_logits"]).all()), "lm: non-finite logits")
-    want = {name: 0 for name in lm_counts}
-    want_pre = dict(want, flash_attention=napp, ssd_chunk=cfg.n_layers)
-    check(res["launches_prefill"] == want_pre and res["launches_decode"] == want
-          and lm_counts == want_pre,
-          f"lm: launches {lm_counts} (prefill {res['launches_prefill']}, decode "
-          f"{res['launches_decode']}), expected prefill {want_pre} and none in decode")
-    # A steady-state reading: the same entry point with one untimed prefill,
-    # then a torch.profiler trace of one prefill and one decode step.
-    res2 = serve.serve_lm(serve.parser().parse_args(argv + ["--warmup", "1", "--profile"]))
-    print(f"[lm] after a warm-up prefill: prefill_ms {res2['prefill_ms']:.3f}, decode_ms "
-          f"{res2['decode_ms']:.3f}, tok_per_s {res2['tok_per_s']:.1f}; the same tokens as "
-          f"the first run: {bool(np.array_equal(res2['tokens'], toks_lm))}")
+    res, lm_counts = serve_twice(
+        torch, "lm", lm_argv(LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, dev),
+        [(attn_kern, "flash_attention_cuda", recorder(rec5)),
+         (ssd_kern, "ssd_chunk_cuda", recorder(rec6))])
+    check_served(torch, "lm", res, lm_counts, cfg.vocab,
+                 dict(flash_attention=napp, ssd_chunk=cfg.n_layers))
 
     # ---- [check lm]: every K5 / K6 launch of the path, replayed plain ---- #
-    worst5 = worst6 = abs5 = abs6 = 0.0
-    for args, kw, out in rec["flash_attention_cuda"]:
-        err, scale = errs(out, attn_ref.attention_ref(*args, **kw))
-        worst5, abs5 = max(worst5, err / scale), max(abs5, err)
-    k6_types = sorted({str(args[0].dtype) for args, _, _ in rec["ssd_chunk_cuda"]})
-    for args, kw, out in rec["ssd_chunk_cuda"]:
+    abs5, worst5 = k5_replay(rec5)
+    worst6 = abs6 = 0.0
+    k6_types = sorted({str(args[0].dtype) for args, _, _ in rec6})
+    for args, kw, out in rec6:
         x, dt, a, b_mat, c_mat, d_vec, chunk, _ = args
         y_ref, h_ref = ssd_ref.ssd_chunked_ref(x, dt, a, b_mat, c_mat, d_vec, chunk)
         for got, ref in ((out[0], y_ref), (out[1], h_ref)):
             err, scale = errs(got, ref)
             worst6, abs6 = max(worst6, err / scale), max(abs6, err)
-    print(f"[check lm] K5: {len(rec['flash_attention_cuda'])} launches of the path against "
-          f"the plain version, max_abs_err {abs5:.3e}, relative {worst5:.3e} (tol "
-          f"{K5_BF16_RTOL:g}); K6: {len(rec['ssd_chunk_cuda'])} launches (x, B, C {k6_types}), "
+    print(f"[check lm] K5: {len(rec5)} launches of the path against the plain version, "
+          f"max_abs_err {abs5:.3e}, worst launch {worst5:.2f} bf16 steps (bar 1); K6: "
+          f"{len(rec6)} launches (x, B, C {k6_types}), "
           f"y and final state max_abs_err {abs6:.3e}, relative {worst6:.3e} (tol {K6_RTOL:g})")
     check(k6_types == ["torch.bfloat16"], f"check lm: K6 took {k6_types}, not the model's bf16")
-    check(len(rec["flash_attention_cuda"]) == napp and len(rec["ssd_chunk_cuda"]) == cfg.n_layers,
+    check(len(rec5) == napp and len(rec6) == cfg.n_layers,
           "check lm: the recorded launches are not the path's")
-    check(worst5 <= K5_BF16_RTOL, f"check lm: K5 disagrees on the path's inputs: {worst5}")
+    check(worst5 <= 1, f"check lm: K5 disagrees on the path's inputs: {worst5}")
     check(worst6 <= K6_RTOL, f"check lm: K6 disagrees on the path's inputs: {worst6}")
-    del rec, res, res2
+    del rec5, rec6, res
     torch.cuda.empty_cache()
 
     def entry(name, source, replaces, rows, path_max):
@@ -1214,6 +1317,198 @@ def lm_phases(torch, dev):
                   "src/repro/kernels/attention/kernel.py:82", k5_rows, abs5),
             entry("ssd_chunk", "src/repro_torch/csrc/ssd_chunk.cu",
                   "src/repro/kernels/ssd/kernel.py:66", k6_rows, abs6)], lm_counts
+
+
+# ---------------------------------------------------------------------- #
+# The attention families (slice 7): [lm-dense], [lm-moe], [lm-families-small]
+# ---------------------------------------------------------------------- #
+# gemma2-9b at full width and depth in bf16: 10.16 B parameters, 40.6 GB as
+# f32 masters and 20.3 GB as the bf16 copies, a 3.2 GB KV cache.  The
+# prompt is past the 4096 window, so the even layers' window bites in
+# prefill and in every decode step.
+DENSE_ARCH, DENSE_BATCH, DENSE_PROMPT, DENSE_GEN = "gemma2-9b", 2, 4608, 32
+MOE_ARCH, MOE_BATCH, MOE_PROMPT, MOE_GEN = "granite-moe-3b-a800m", 4, 1024, 32
+# [lm-families-small]: (arch, prompt tokens or audio frames) at full width,
+# 2 layers, bf16, card against CPU; paligemma's 64 text tokens follow its
+# 256 patches, hubert's 512 frames go through forward_logits.
+FAMILIES_SMALL = [("gemma2-9b", 256), ("granite-moe-3b-a800m", 256), ("paligemma-3b", 64),
+                  ("hubert-xlarge", 512)]
+FAMILIES_SMALL_LAYERS, FAMILIES_SMALL_STEPS = 2, 4
+
+
+def lm_family_phases(torch, dev):
+    """[lm-dense], [check lm-dense], [lm-moe], [check lm-moe] and
+    [lm-families-small].  Returns each path's launch counts and K5's largest
+    error on the two full-size paths."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.attention import kernel as attn_kern, ref as attn_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import Model
+
+    paths = {}
+
+    # ---- [lm-dense]: gemma2-9b through the serving entry point ---------- #
+    cfg = get_config(DENSE_ARCH)
+    argv = lm_argv(DENSE_ARCH, DENSE_BATCH, DENSE_PROMPT, DENSE_GEN, dev)
+    kinds = []          # (window, softcap) of each K5 launch: no tensors kept
+
+    def rec_kinds(fn):
+        def wrapped(*args, **kw):
+            kinds.append((kw.get("window") or 0, kw.get("softcap", 0.0)))
+            return fn(*args, **kw)
+        return wrapped
+
+    res, paths["lm-dense"] = serve_twice(torch, "lm-dense", argv,
+                                         [(attn_kern, "flash_attention_cuda", rec_kinds)])
+    check_served(torch, "lm-dense", res, paths["lm-dense"], cfg.vocab,
+                 dict(flash_attention=cfg.n_layers))
+    n_local = sum(w == cfg.window for w, _ in kinds)
+    print(f"[lm-dense] K5 launches: {n_local} with window {cfg.window}, "
+          f"{sum(w == 0 for w, _ in kinds)} global, softcaps {sorted({c for _, c in kinds})}")
+    check(len(kinds) == cfg.n_layers and n_local == cfg.n_layers // 2
+          and all(c == cfg.attn_softcap for _, c in kinds),
+          f"lm-dense: K5 launches {kinds}")
+    del res
+
+    # ---- [check lm-dense]: one more prefill, each K5 launch held against
+    # the plain version as it happens (one batch row and kv head at a time:
+    # the inputs of 42 launches would not fit beside the weights) --------- #
+    orig = attn_kern.flash_attention_cuda
+    seen = []
+
+    def checked(q, k, v, **kw):
+        out = orig(q, k, v, **kw)
+        rep = q.shape[1] // k.shape[1]
+        err = scale = 0.0
+        for b_ in range(q.shape[0]):
+            for g in range(k.shape[1]):
+                hs = slice(g * rep, (g + 1) * rep)
+                e_, s_ = errs(out[b_:b_ + 1, hs], attn_ref.attention_ref(
+                    q[b_:b_ + 1, hs], k[b_:b_ + 1, g:g + 1], v[b_:b_ + 1, g:g + 1], **kw))
+                err, scale = max(err, e_), max(scale, s_)
+        seen.append((err, scale))
+        return out
+
+    _, model, batch, max_len = serve.lm_setup(serve.parser().parse_args(argv))
+    attn_kern.flash_attention_cuda = checked
+    try:
+        model.prefill(batch, max_len)
+    finally:
+        attn_kern.flash_attention_cuda = orig
+    del model, batch
+    torch.cuda.empty_cache()
+    abs_dense = max(e_ for e_, _ in seen)
+    worst = max(e_ / k5_bf16_tol(s_) for e_, s_ in seen)
+    print(f"[check lm-dense] K5: {len(seen)} launches of the path against the plain version "
+          f"as they ran, max_abs_err {abs_dense:.3e}, worst launch {worst:.2f} bf16 steps "
+          f"(bar 1)")
+    check(len(seen) == cfg.n_layers, f"check lm-dense: {len(seen)} launches")
+    check(worst <= 1, f"check lm-dense: K5 disagrees on the path's inputs: {worst}")
+
+    # ---- [lm-moe]: granite-moe-3b-a800m, every launch kept and replayed - #
+    cfg = get_config(MOE_ARCH)
+    rec = []
+    res, paths["lm-moe"] = serve_twice(
+        torch, "lm-moe", lm_argv(MOE_ARCH, MOE_BATCH, MOE_PROMPT, MOE_GEN, dev),
+        [(attn_kern, "flash_attention_cuda", recorder(rec))])
+    check_served(torch, "lm-moe", res, paths["lm-moe"], cfg.vocab,
+                 dict(flash_attention=cfg.n_layers))
+    abs_moe, worst = k5_replay(rec)
+    print(f"[check lm-moe] K5: {len(rec)} launches of the path against the plain version, "
+          f"max_abs_err {abs_moe:.3e}, worst launch {worst:.2f} bf16 steps (bar 1)")
+    check(len(rec) == cfg.n_layers, f"check lm-moe: {len(rec)} launches")
+    check(worst <= 1, f"check lm-moe: K5 disagrees on the path's inputs: {worst}")
+    del rec, res
+    torch.cuda.empty_cache()
+
+    # What the MoE's f32 expert products cost at the path's shape: one
+    # layer's moe_block on the prefill's tokens, and one of its three
+    # (E, cap, d) x (E, d, ff) products in f32 (TF32 off) and in bf16.
+    t = MOE_BATCH * MOE_PROMPT
+    cap = min(int(max(4, t * cfg.top_k / cfg.n_experts * cfg.capacity_factor)), t)
+    e, d, ff = cfg.n_experts, cfg.d_model, cfg.d_ff
+    gen = torch.Generator(device=dev).manual_seed(70)
+    rnd = lambda *shape: torch.randn(shape, device=dev, generator=gen)
+    x = rnd(MOE_BATCH, MOE_PROMPT, d).to(torch.bfloat16)
+    p = layers.MoEParams(*((rnd(*sh) * sh[-2] ** -0.5).to(torch.bfloat16) for sh in
+                           ((d, e), (e, d, ff), (e, d, ff), (e, ff, d))))
+    ms_block = time_ms(torch, lambda: layers.moe_block(x, p, cfg.top_k, cfg.capacity_factor), 5)
+    buf, wg = rnd(e, cap, d), rnd(e, d, ff)
+    ms_f32 = time_ms(torch, lambda: torch.bmm(buf, wg), 10)
+    buf16, wg16 = buf.to(torch.bfloat16), wg.to(torch.bfloat16)
+    ms_bf16 = time_ms(torch, lambda: torch.bmm(buf16, wg16), 10)
+    flops = 2.0 * e * cap * d * ff
+    print(f"[lm-moe] moe_block at the path's shape (T {t}, E {e}, top {cfg.top_k}, cap {cap}, "
+          f"d {d}, ff {ff}): {ms_block:.4f} ms a layer; one expert product {flops / 1e9:.1f} "
+          f"GFLOP: f32 {ms_f32:.4f} ms (bound {flops / F32_FLOP_PER_S * 1e3:.4f} ms at the f32 "
+          f"rate), bf16 operands {ms_bf16:.4f} ms (bound "
+          f"{flops / BF16_TC_FLOP_PER_S * 1e3:.4f} ms)")
+    del x, p, buf, wg, buf16, wg16
+    torch.cuda.empty_cache()
+
+    # ---- [lm-families-small]: four families, card against CPU ----------- #
+    small_counts = {name: 0 for name in _build.launch_counts}
+    for arch, n in FAMILIES_SMALL:
+        cfg_s = dataclasses.replace(get_config(arch), n_layers=FAMILIES_SMALL_LAYERS)
+        t0 = time.perf_counter()
+        cpu_model = Model(cfg_s, device="cpu").init(torch.Generator().manual_seed(0))
+        card_model = Model(cfg_s, device=dev)
+        card_model.load_state_dict(cpu_model.state_dict())
+        rng = np.random.default_rng(0)
+        steps = 0 if cfg_s.frontend == "audio_stub" else FAMILIES_SMALL_STEPS
+        inp = {}
+        if cfg_s.frontend == "audio_stub":
+            inp["frames"] = torch.as_tensor(rng.normal(size=(1, n, cfg_s.frontend_dim)),
+                                            dtype=torch.float32)
+            inp["mask_indices"] = torch.as_tensor(rng.random((1, n)) < 0.3)
+        else:
+            inp["tokens"] = torch.as_tensor(rng.integers(0, cfg_s.vocab, size=(1, n + steps)))
+        if cfg_s.frontend == "vision_stub":
+            inp["patches"] = torch.as_tensor(rng.normal(
+                size=(1, cfg_s.n_prefix_tokens, cfg_s.frontend_dim)), dtype=torch.float32)
+        logits = {}
+        for where, model in (("cpu", cpu_model), ("cuda", card_model)):
+            _build.reset_launch_counts()      # read after the card's run, the last
+            batch = {k_: v_.to(model.device) for k_, v_ in inp.items()}
+            if steps == 0:
+                logits[where] = [model.forward_logits(batch).cpu()]
+            else:
+                toks = batch["tokens"]
+                out, cache = model.prefill(dict(batch, tokens=toks[:, :n]),
+                                           n + steps + cfg_s.n_prefix_tokens)
+                outs = [out.cpu()]
+                for i in range(n, n + steps):
+                    out, cache = model.decode_step(cache, toks[:, i:i + 1])
+                    outs.append(out.cpu())
+                logits[where] = outs
+        ran = dict(_build.launch_counts)
+        for k_ in small_counts:
+            small_counts[k_] += ran[k_]
+        worst = 0.0
+        for a_, b_ in zip(logits["cuda"], logits["cpu"]):
+            check(bool(torch.isfinite(a_).all()), f"lm-families-small {arch}: non-finite logits")
+            worst = max(worst, rel_err(a_, b_))
+        what = (f"forward_logits of {n} frames with a mask" if steps == 0 else
+                f"prefill of {cfg_s.n_prefix_tokens} patches + {n} tokens" if
+                cfg_s.n_prefix_tokens else f"prefill of {n} tokens")
+        print(f"[lm-families-small] {arch} ({cfg_s.family}) full width, "
+              f"{FAMILIES_SMALL_LAYERS} layers, {cfg_s.compute_dtype}: {what}"
+              f"{'' if steps == 0 else f', {steps} teacher-forced decode steps'}: card vs CPU "
+              f"logits max_rel_err {worst:.3e} (tol {LM_SMALL_BF16_RTOL:g}); "
+              f"{time.perf_counter() - t0:.1f} s; card launches "
+              f"{json.dumps({k_: v_ for k_, v_ in ran.items() if v_})}")
+        check(worst <= LM_SMALL_BF16_RTOL, f"lm-families-small {arch}: card and CPU disagree")
+        want = {k_: 0 for k_ in ran}
+        check(ran == dict(want, flash_attention=FAMILIES_SMALL_LAYERS),
+              f"lm-families-small {arch}: launches {ran}")
+        del cpu_model, card_model, logits
+        torch.cuda.empty_cache()
+    paths["lm-families-small"] = small_counts
+    return paths, max(abs_dense, abs_moe)
 
 
 def main() -> int:
@@ -2694,6 +2989,8 @@ def main() -> int:
 
     # ---- 17-20. the LM serving path ----------------------------------- #
     lm_kernels, lm_counts = lm_phases(torch, dev)
+    # ---- 21-23. the attention families -------------------------------- #
+    family_counts, k5_family_err = lm_family_phases(torch, dev)
 
     # ---- 16. summary -------------------------------------------------- #
     by_path = {"main": main_counts, "lap": lap_counts, "accurate": acc_counts,
@@ -2701,7 +2998,7 @@ def main() -> int:
                "oneclass": oc_counts, "gp": gp_counts, "stream": stream_counts,
                "multilevel": ml_counts, "adaptive-rho": rho_counts,
                "stream-resume": resume_counts, "serve": serve_counts,
-               "baselines": base_counts, "lm": lm_counts}
+               "baselines": base_counts, "lm": lm_counts, **family_counts}
 
     def entry(name, source, replaces, path, main_row, rows_all, **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -2724,8 +3021,9 @@ def main() -> int:
         entry("laplacian_block", "src/repro_torch/csrc/laplacian_block.cu",
               "src/repro/kernels/compress/laplacian.py:47", "lap", k4_rows[2], k4_rows),
     ] + lm_kernels
-    for e in lm_kernels:          # K5 and K6 on every path (0 off the LM path)
+    for e in lm_kernels:          # K5 and K6 on every path (0 off the LM paths)
         e["launches_by_path"] = {p: c[e["name"]] for p, c in by_path.items()}
+    lm_kernels[0]["max_abs_err"] = max(lm_kernels[0]["max_abs_err"], k5_family_err)
     print(f"[summary] card {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

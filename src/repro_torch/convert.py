@@ -20,9 +20,9 @@ from repro_torch.core.factorization import HSSFactorization
 from repro_torch.core.hss import HSSMatrix
 from repro_torch.core.kernelfn import KernelSpec
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import AttnParams, MLPParams
+from repro_torch.models.layers import AttnParams, MLPParams, MoEParams
 from repro_torch.models.ssm import SSMParams
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import AttnBlock, Model
 
 
 def _t(a: np.ndarray, device) -> torch.Tensor:
@@ -94,27 +94,39 @@ def engine_model_from_numpy(*, x_perm: np.ndarray, z_y: np.ndarray,
 def lm_params_from_numpy(cfg: ModelConfig, params: dict, device="cuda") -> Model:
     """The port's ``Model`` of ``cfg`` holding ``params``: the nested dict
     that the JAX ``Model.init`` returns (per-layer leaves stacked over L),
-    as numpy arrays.  Both then compute the same function."""
+    as numpy arrays, for every family.  Both then compute the same function."""
     model = Model(cfg, device=device)
 
     def put(p: torch.nn.Parameter, a):
         p.copy_(torch.as_tensor(np.array(a)).to(p.dtype))
 
+    def put_block(block, tree, idx=None):
+        """An ``AttnBlock``'s leaves: ``ln1``, ``ln2``, ``attn``, ``mlp``, ``moe``."""
+        at = (lambda a: a) if idx is None else (lambda a: a[idx])
+        put(block.ln1, at(tree["ln1"]))
+        put(block.ln2, at(tree["ln2"]))
+        for name in AttnParams._fields:
+            put(getattr(block, name), at(tree["attn"][name]))
+        if block.has_mlp:
+            for name in MLPParams._fields:
+                put(getattr(block, name), at(tree["mlp"][name]))
+        if block.moe is not None:
+            for name in MoEParams._fields:
+                put(getattr(block.moe, name), at(tree["moe"][name]))
+
     put(model.embed, params["embed"])
     put(model.final_norm, params["final_norm"])
-    if model.head is not None:
-        put(model.head, params["head"])
+    for name in ("head", "vision_proj", "frontend_proj", "mask_emb"):
+        if getattr(model, name) is not None:
+            put(getattr(model, name), params[name])
     lp = params["layers"]
     for idx, layer in enumerate(model.layers):
+        if isinstance(layer, AttnBlock):
+            put_block(layer, lp, idx)
+            continue
         put(layer.ln1, lp["ln1"][idx])
         for name in SSMParams._fields:
             put(getattr(layer, name), lp["ssm"][name][idx])
     if model.shared is not None:
-        sp = params["shared"]
-        put(model.shared.ln1, sp["ln1"])
-        put(model.shared.ln2, sp["ln2"])
-        for name in AttnParams._fields:
-            put(getattr(model.shared, name), sp["attn"][name])
-        for name in MLPParams._fields:
-            put(getattr(model.shared, name), sp["mlp"][name])
+        put_block(model.shared, params["shared"])
     return model

@@ -4,17 +4,21 @@ kernel box-QP scoring through the serving tier.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --preset full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --preset tiny \\
       --device cpu --batch 2 --prompt-len 32 --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b --preset full \\
+      --batch 2 --prompt-len 4608 --gen 32
 
   PYTHONPATH=src python -m repro_torch.launch.serve --task svm \\
       --svm-classes 4 --svm-train 8192 --batch 256 --requests 50
   PYTHONPATH=src python -m repro_torch.launch.serve --task svr|oneclass|krr|gp \\
       --batch 256 [--registry DIR] [--prune-tol 1e-3] [--serve-dtype bfloat16]
 
-The twin of ``repro.launch.serve``.  The LM path (ssm and hybrid
-families): weights from ``Model.init`` with a generator seeded 0 on the
-serving device, prompt tokens from ``numpy.random.default_rng(0)``, then
-one prefill and ``--gen`` greedy decode steps.  On a CUDA device prefill
-runs K5 (attention) and K6 (the SSD scan); decode runs plain torch.
+The twin of ``repro.launch.serve``.  The LM path serves every decoder
+family (dense, moe, ssm, hybrid, vlm; an encoder-only arch exits, as the
+reference's does): weights from ``Model.init`` with a generator seeded 0
+on the serving device, prompt tokens from ``numpy.random.default_rng(0)``
+(vlm: then the patches), one prefill and ``--gen`` greedy decode steps.
+On a CUDA device prefill runs K5 (every attention) and K6 (the SSD scan);
+decode runs plain torch.
 
 The kernel paths train one model on ONE shared HSS factorization
 (``HSSSVMEngine``) and serve it through ``serve.ServingEngine``: ``--task
@@ -82,15 +86,20 @@ def profile_device(device: torch.device, fn) -> dict:
                         sorted(groups.items(), key=lambda kv: -kv[1][0])})
 
 
-def serve_lm(args) -> dict:
-    """Run the LM serving path; print and return its numbers."""
+def lm_setup(args):
+    """The LM path's model and prompt: (cfg, model, batch, max_len).
+
+    Weights from ``Model.init`` with a generator seeded 0 on the serving
+    device; tokens from ``numpy.random.default_rng(0)``, then (vlm) the
+    patches from the same rng, whose prefix the cache also holds."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import _build
     from repro_torch.models.transformer import Model
 
     cfg = get_config(args.arch)
     if args.preset == "tiny":
         cfg = cfg.reduced()
+    if not cfg.is_decoder:
+        raise SystemExit("encoder-only arch has no decode step")
     device = torch.device(args.device)
     model = Model(cfg, device=device)
     model.init(torch.Generator(device=device).manual_seed(0))
@@ -98,7 +107,20 @@ def serve_lm(args) -> dict:
     max_len = args.prompt_len + args.gen
     batch = {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab, size=(args.batch, args.prompt_len)), device=device)}
+    if cfg.frontend == "vision_stub":
+        batch["patches"] = torch.as_tensor(rng.normal(
+            size=(args.batch, cfg.n_prefix_tokens, cfg.frontend_dim)),
+            dtype=torch.float32, device=device)
+        max_len += cfg.n_prefix_tokens
+    return cfg, model, batch, max_len
 
+
+def serve_lm(args) -> dict:
+    """Run the LM serving path; print and return its numbers."""
+    from repro_torch.kernels import _build
+
+    cfg, model, batch, max_len = lm_setup(args)
+    device = model.device
     for _ in range(args.warmup):
         model.prefill(batch, max_len)
     if device.type == "cuda":

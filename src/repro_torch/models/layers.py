@@ -3,8 +3,9 @@
 Twins of ``repro.models.layers`` as plain functions over explicit parameter
 tuples.  Attention routes to ``kernels/attention/ops.py``: K5 on CUDA
 tensors, its plain version on CPU tensors, with ``chunked_attention``'s
-semantics (the layer window and ``prefix_len`` included).  MoE and the
-sharded attention wait for their slices (ROADMAP queue 1 items 13, 14).
+semantics (the layer window and ``prefix_len`` included).  ``moe_block`` is
+the reference's single-device dispatch (no mesh); the sharded attention and
+the expert-parallel MoE wait for ROADMAP queue 1 item 13.
 
 bf16 arithmetic follows the reference op by op: ``silu`` is ``x *
 sigmoid(x)``, two roundings, as ``jax.nn.silu`` is written.
@@ -111,3 +112,78 @@ class MLPParams(NamedTuple):
 
 def mlp_block(x: torch.Tensor, p: MLPParams) -> torch.Tensor:
     return (silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+
+
+class MoEParams(NamedTuple):
+    router: torch.Tensor   # (d, E)
+    w_gate: torch.Tensor   # (E, d, ffe)
+    w_up: torch.Tensor     # (E, d, ffe)
+    w_down: torch.Tensor   # (E, ffe, d)
+
+
+def _moe_dispatch_chunk(xf: torch.Tensor, p: MoEParams, top_k: int,
+                        cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch, compute and combine for one token chunk xf (T, d).
+
+    The reference's slot layout: choices sorted stably by expert, the first
+    ``cap`` of each expert kept at ``expert * cap + rank``, the rest sent to
+    a trash slot that is never read back.  The reference pads E to a
+    multiple of ``expert_pad`` (16) and computes the padded experts on zero
+    rows; here only the E real experts are computed and the trash slot
+    follows them, which gives the same output.  The expert products take
+    the compute-type operands widened to f32 (exact) into an f32 product, as
+    ``preferred_element_type=f32`` has them; on the card that needs TF32 off
+    (PyTorch's default)."""
+    t, d = xf.shape
+    e = p.router.shape[-1]
+    dev = xf.device
+    probs = torch.softmax((xf @ p.router).float(), dim=-1)            # (T, E)
+    # lax.top_k takes the lower expert first among equal gates, and a stable
+    # descending sort does too (torch.topk leaves that order unspecified).
+    # Under bf16 the router logits are rounded to 8 bits, so equal gates
+    # are common.
+    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = gate_vals[:, :top_k], gate_idx[:, :top_k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+
+    # Switch-style load-balancing auxiliary loss.
+    flat_e = gate_idx.reshape(-1)
+    ce = torch.bincount(flat_e, minlength=e).float() / (t * top_k)
+    aux = e * torch.sum(probs.mean(0) * ce)
+
+    flat_t = torch.arange(t, device=dev).repeat_interleave(top_k)
+    # stable, or the choices past an expert's capacity differ from the reference's
+    se, order = torch.sort(flat_e, stable=True)
+    st, sw = flat_t[order], gate_vals.reshape(-1)[order]
+    counts = torch.bincount(se, minlength=e)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(t * top_k, device=dev) - starts[se]
+    keep = pos < cap
+    slot = torch.where(keep, se * cap + pos, torch.full_like(se, e * cap))
+
+    buf = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=dev)
+    buf[slot] = torch.where(keep[:, None], xf[st], torch.zeros((), dtype=xf.dtype, device=dev))
+    buf = buf[:-1].reshape(e, cap, d).float()
+    hgate = torch.bmm(buf, p.w_gate.float())
+    hup = torch.bmm(buf, p.w_up.float())
+    hout = torch.bmm(silu(hgate) * hup, p.w_down.float()).to(xf.dtype)
+
+    yflat = torch.cat([hout.reshape(e * cap, d),
+                       torch.zeros((1, d), dtype=xf.dtype, device=dev)])
+    gathered = yflat[slot] * (sw * keep)[:, None].to(xf.dtype)
+    out = torch.zeros((t, d), dtype=xf.dtype, device=dev).index_add_(0, st, gathered)
+    return out, aux
+
+
+def moe_block(x: torch.Tensor, p: MoEParams, top_k: int,
+              capacity_factor: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k MoE with capacity over x (B, S, d): (out (B, S, d), aux loss).
+
+    The reference's single-device branch: every token of the batch in one
+    chunk, ``cap = min(int(max(4, T k / E * capacity_factor)), T)``."""
+    b, s, d = x.shape
+    e = p.router.shape[-1]
+    t = b * s
+    cap = min(int(max(4, (t * top_k / e) * capacity_factor)), t)
+    out, aux = _moe_dispatch_chunk(x.reshape(t, d), p, top_k, cap)
+    return out.reshape(b, s, d), aux

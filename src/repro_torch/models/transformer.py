@@ -1,17 +1,26 @@
-"""Model assembly of the port: init, prefill, decode for the ssm / hybrid families.
+"""Model assembly of the port: init, forward, prefill and decode for every family.
 
 Twin of ``repro.models.transformer.Model`` as an ``nn.Module``.  The
 reference stacks every per-layer leaf along a leading (L,) axis and scans;
 here each layer is a submodule of its own and the scan is a Python loop.
 
+  dense   — attention + SwiGLU MLP                 (gemma2, mistral, llama3,
+            deepseek-coder; gemma2's even layers are local, window 4096)
+  moe     — attention + top-k MoE (+ arctic's parallel dense FFN)
   ssm     — Mamba-2 SSD blocks only                (mamba2)
   hybrid  — Mamba-2 blocks + ONE shared attention+MLP block applied after
             every layer idx with (idx + 1) % shared_attn_every == 0
             (zamba2; its weights are reused at each application, with a
             KV cache slot per application)
+  encoder — bidirectional attention blocks over projected audio frames
+            (hubert); served through ``forward_logits``, no decode
+  vlm     — projected patches prepended to the text, prefix-LM mask
+            (paligemma)
 
-The other families (dense, moe, encoder, vlm) are ROADMAP queue 1 item 14
-and raise ``NotImplementedError``.
+Every attention runs through ``layers.attention_block``: K5 on the card,
+its plain version on the CPU.  Prefill fills each layer's KV cache from
+the projections its attention used; decode attends over the cache in plain
+torch, as the reference does.
 
 Parameters are kept in ``param_dtype`` (f32 masters).  Like the
 reference's ``_cast_tree``, every float parameter enters the compute in
@@ -30,10 +39,12 @@ from torch import nn
 
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (AttnParams, MLPParams, apply_rope, attention_block,
-                                       decode_attention, mlp_block, qkv, rms_norm)
+from repro_torch.models.layers import (AttnParams, MLPParams, MoEParams, apply_rope,
+                                       attention_block, decode_attention, mlp_block,
+                                       moe_block, qkv, rms_norm)
 
-FAMILIES = ("ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encoder", "vlm")
+ATTN_FAMILIES = ("dense", "moe", "encoder", "vlm")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -66,10 +77,23 @@ class SSMLayer(nn.Module):
         self.out_proj = _param((d_in, d), dtype, device)
 
 
-class SharedBlock(nn.Module):
-    """zamba2's weight-shared attention + MLP block."""
+class Experts(nn.Module):
+    """A layer's ``MoEParams``: the router and the stacked expert weights."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d, e, ffe = cfg.d_model, cfg.n_experts, cfg.d_ff
+        self.router = _param((d, e), dtype, device)
+        self.w_gate = _param((e, d, ffe), dtype, device)
+        self.w_up = _param((e, d, ffe), dtype, device)
+        self.w_down = _param((e, ffe, d), dtype, device)
+
+
+class AttnBlock(nn.Module):
+    """Pre-norm attention, then a SwiGLU MLP of width ``ff`` and/or top-k
+    experts: a layer of the attention families, and zamba2's shared block."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, ff: int, moe: bool = False):
         super().__init__()
         d, hd = cfg.d_model, cfg.head_dim
         self.ln1 = _param((d,), dtype, device)
@@ -78,31 +102,42 @@ class SharedBlock(nn.Module):
         self.wk = _param((d, cfg.n_kv_heads * hd), dtype, device)
         self.wv = _param((d, cfg.n_kv_heads * hd), dtype, device)
         self.wo = _param((cfg.n_heads * hd, d), dtype, device)
-        self.w_gate = _param((d, cfg.d_ff), dtype, device)
-        self.w_up = _param((d, cfg.d_ff), dtype, device)
-        self.w_down = _param((cfg.d_ff, d), dtype, device)
+        self.has_mlp = ff > 0
+        if self.has_mlp:
+            self.w_gate = _param((d, ff), dtype, device)
+            self.w_up = _param((d, ff), dtype, device)
+            self.w_down = _param((ff, d), dtype, device)
+        self.moe = Experts(cfg, dtype, device) if moe else None
 
 
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r}: the port serves the ssm and hybrid families; "
-                "the others are ROADMAP queue 1 item 14")
-        if cfg.frontend != "none":
-            raise NotImplementedError("modality frontends are ROADMAP queue 1 item 14")
+            raise ValueError(f"unknown family {cfg.family!r}; known: {FAMILIES}")
         self.cfg = cfg
         self.device = torch.device(device)
+        self.attention = cfg.family in ATTN_FAMILIES
         pd = _dtype(cfg.param_dtype)
         d = cfg.d_model
         self.embed = _param((cfg.vocab, d), pd, self.device)
         self.final_norm = _param((d,), pd, self.device)
         self.head = None if cfg.tie_embeddings else _param((d, cfg.vocab), pd, self.device)
-        self.layers = nn.ModuleList(SSMLayer(cfg, pd, self.device)
-                                    for _ in range(cfg.n_layers))
-        self.shared = (SharedBlock(cfg, pd, self.device)
+        if self.attention:
+            moe = cfg.family == "moe"
+            ff = cfg.moe_dense_ff if moe else cfg.d_ff
+            self.layers = nn.ModuleList(AttnBlock(cfg, pd, self.device, ff, moe)
+                                        for _ in range(cfg.n_layers))
+        else:
+            self.layers = nn.ModuleList(SSMLayer(cfg, pd, self.device)
+                                        for _ in range(cfg.n_layers))
+        self.shared = (AttnBlock(cfg, pd, self.device, cfg.d_ff)
                        if cfg.family == "hybrid" and cfg.shared_attn_every else None)
+        self.vision_proj = (_param((cfg.frontend_dim, d), pd, self.device)
+                            if cfg.frontend == "vision_stub" else None)
+        audio = cfg.frontend == "audio_stub"
+        self.frontend_proj = _param((cfg.frontend_dim, d), pd, self.device) if audio else None
+        self.mask_emb = _param((d,), pd, self.device) if audio else None
         self._cw = None
 
     # ------------------------------------------------------------------ #
@@ -112,9 +147,10 @@ class Model(nn.Module):
     def init(self, generator: torch.Generator) -> "Model":
         """Draw every parameter from ``generator`` with the reference's
         distributions (``transformer.py`` ``Model.init``): matrices normal
-        times shape[-2]^-1/2 (the embedding 0.02), gains and biases zero,
-        ``a_log = log(linspace(1, 16, H))``, ``d_skip`` one, and ``dt_bias``
-        the inverse softplus of exp(uniform(log 1e-3, log 1e-1))."""
+        times shape[-2]^-1/2 (the embedding and ``mask_emb`` 0.02), gains
+        and biases zero, ``a_log = log(linspace(1, 16, H))``, ``d_skip``
+        one, and ``dt_bias`` the inverse softplus of exp(uniform(log 1e-3,
+        log 1e-1))."""
         cfg = self.cfg
         gdev = generator.device
 
@@ -125,11 +161,17 @@ class Model(nn.Module):
             normal(p, p.shape[-2] ** -0.5)
 
         normal(self.embed, 0.02)
-        if self.head is not None:
-            mat(self.head)
+        for p in (self.head, self.vision_proj, self.frontend_proj):
+            if p is not None:
+                mat(p)
+        if self.mask_emb is not None:
+            normal(self.mask_emb, 0.02)
         heads = cfg.ssm_heads
         lo, hi = math.log(1e-3), math.log(1e-1)
         for layer in self.layers:
+            if isinstance(layer, AttnBlock):
+                self._init_block(layer, mat)
+                continue
             mat(layer.in_proj)
             normal(layer.conv_w, cfg.ssm_conv ** -0.5)
             mat(layer.out_proj)
@@ -141,31 +183,48 @@ class Model(nn.Module):
             for gain in (layer.ln1, layer.conv_b, layer.norm):
                 gain.zero_()
         if self.shared is not None:
-            for w in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
-                mat(getattr(self.shared, w))
-            self.shared.ln1.zero_()
-            self.shared.ln2.zero_()
+            self._init_block(self.shared, mat)
         self.final_norm.zero_()
         self._cw = None
         return self
+
+    @staticmethod
+    def _init_block(block: AttnBlock, mat) -> None:
+        names = list(AttnParams._fields) + (list(MLPParams._fields) if block.has_mlp else [])
+        for w in names:
+            mat(getattr(block, w))
+        if block.moe is not None:
+            for w in MoEParams._fields:
+                mat(getattr(block.moe, w))
+        block.ln1.zero_()
+        block.ln2.zero_()
 
     def weights(self) -> SimpleNamespace:
         """Every parameter in the compute type (``_cast_tree``), made once."""
         if self._cw is None:
             cd = _dtype(self.cfg.compute_dtype)
-            c = lambda p: p.detach().to(cd)
-            sh = self.shared
+            c = lambda p: None if p is None else p.detach().to(cd)
             self._cw = SimpleNamespace(
                 embed=c(self.embed), final_norm=c(self.final_norm),
                 head=c(self.embed).T if self.head is None else c(self.head),
-                layers=[(c(lay.ln1), ssm_mod.SSMParams(
-                    *(c(getattr(lay, f)) for f in ssm_mod.SSMParams._fields)))
-                    for lay in self.layers],
-                shared=None if sh is None else SimpleNamespace(
-                    ln1=c(sh.ln1), ln2=c(sh.ln2),
-                    attn=AttnParams(*(c(getattr(sh, f)) for f in AttnParams._fields)),
-                    mlp=MLPParams(*(c(getattr(sh, f)) for f in MLPParams._fields))))
+                layers=[self._block_weights(lay, c) if isinstance(lay, AttnBlock) else
+                        (c(lay.ln1), ssm_mod.SSMParams(
+                            *(c(getattr(lay, f)) for f in ssm_mod.SSMParams._fields)))
+                        for lay in self.layers],
+                shared=None if self.shared is None else self._block_weights(self.shared, c),
+                vision_proj=c(self.vision_proj), frontend_proj=c(self.frontend_proj),
+                mask_emb=c(self.mask_emb))
         return self._cw
+
+    @staticmethod
+    def _block_weights(block: AttnBlock, c) -> SimpleNamespace:
+        return SimpleNamespace(
+            ln1=c(block.ln1), ln2=c(block.ln2),
+            attn=AttnParams(*(c(getattr(block, f)) for f in AttnParams._fields)),
+            mlp=MLPParams(*(c(getattr(block, f)) for f in MLPParams._fields))
+            if block.has_mlp else None,
+            moe=None if block.moe is None else MoEParams(
+                *(c(getattr(block.moe, f)) for f in MoEParams._fields)))
 
     # ------------------------------------------------------------------ #
     # embedding / unembedding                                            #
@@ -177,7 +236,20 @@ class Model(nn.Module):
         return emb[tokens] * torch.tensor(self.cfg.d_model ** 0.5, dtype=emb.dtype)
 
     def embed_inputs(self, batch: dict) -> tuple[torch.Tensor, int]:
-        """(x (B, S, d), prefix_len) for a batch of ``tokens`` (no frontend)."""
+        """(x (B, S, d), prefix_len) through the modality frontend: audio
+        ``frames`` (B, S, frontend_dim) projected, ``mask_emb`` where
+        ``mask_indices``; or ``patches`` (B, P, frontend_dim) projected and
+        prepended to the ``tokens``' embeddings, all P of them a prefix."""
+        cfg, w = self.cfg, self.weights()
+        if cfg.frontend == "audio_stub":
+            x = batch["frames"].to(w.frontend_proj.dtype) @ w.frontend_proj
+            if "mask_indices" in batch:
+                x = torch.where(batch["mask_indices"][..., None], w.mask_emb, x)
+            return x, 0
+        if cfg.frontend == "vision_stub":
+            vis = batch["patches"].to(w.vision_proj.dtype) @ w.vision_proj
+            return (torch.cat([vis, self.embed_tokens(batch["tokens"])], dim=1),
+                    cfg.n_prefix_tokens)
         return self.embed_tokens(batch["tokens"]), 0
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -190,40 +262,72 @@ class Model(nn.Module):
     # ------------------------------------------------------------------ #
     # forward                                                            #
     # ------------------------------------------------------------------ #
+    def layer_window(self, idx: int) -> int:
+        """Layer ``idx``'s attention window (0 global): gemma2 is local on
+        the even layers (``_layer_windows``)."""
+        cfg = self.cfg
+        if cfg.alt_local_global:
+            return cfg.window if idx % 2 == 0 else 0
+        return cfg.window
+
     def _applies_shared(self, idx: int) -> bool:
         every = self.cfg.shared_attn_every
         return self.shared is not None and bool(every) and (idx + 1) % every == 0
 
-    def _block(self, x, layer):
-        """One Mamba-2 layer with its residual (the ssm/hybrid ``_block``;
-        these families have no per-layer attention, so no layer window)."""
-        ln1, p = layer
-        return x + ssm_mod.ssm_block(rms_norm(x, ln1, self.cfg.norm_eps), p, self.cfg)
+    def _ffn(self, h, blk):
+        """The block's feed-forward on its normed input: MLP, or MoE plus
+        arctic's parallel dense MLP.  MoE's aux loss is a training term."""
+        if blk.moe is None:
+            return mlp_block(h, blk.mlp)
+        out, _ = moe_block(h, blk.moe, self.cfg.top_k, self.cfg.capacity_factor)
+        return out if blk.mlp is None else out + mlp_block(h, blk.mlp)
 
-    def _shared_block(self, x, positions, prefix_len, kv_out=None):
-        """The shared attention + MLP block; ``kv_out`` receives the (k, v)
-        the attention used (prefill's cache)."""
-        cfg, sw = self.cfg, self.weights().shared
-        h = rms_norm(x, sw.ln1, cfg.norm_eps)
-        q, k, v = qkv(h, sw.attn, positions, cfg)
+    def _attn_block(self, x, blk, positions, window, prefix_len, kv_out=None):
+        """Attention (K5 on the card) and feed-forward with their residuals;
+        ``kv_out`` receives the (k, v) the attention used (prefill's cache)."""
+        cfg = self.cfg
+        h = rms_norm(x, blk.ln1, cfg.norm_eps)
+        q, k, v = qkv(h, blk.attn, positions, cfg)
         if kv_out is not None:
             kv_out.extend((k, v))
-        x = x + attention_block(h, sw.attn, positions, cfg, 0, prefix_len, kv=(q, k, v))
-        return x + mlp_block(rms_norm(x, sw.ln2, cfg.norm_eps), sw.mlp)
+        x = x + attention_block(h, blk.attn, positions, cfg, window, prefix_len,
+                                kv=(q, k, v))
+        return x + self._ffn(rms_norm(x, blk.ln2, cfg.norm_eps), blk)
 
-    def backbone(self, x: torch.Tensor, positions: torch.Tensor,
-                 prefix_len: int = 0) -> torch.Tensor:
-        """Every layer in order. Returns the final-normed hidden (B, S, d)."""
-        w = self.weights()
+    def backbone(self, x: torch.Tensor, positions: torch.Tensor, prefix_len: int = 0,
+                 cache: dict | None = None) -> torch.Tensor:
+        """Every layer in order. Returns the final-normed hidden (B, S, d);
+        with ``cache``, also fills its KV slots, SSD states and conv tails
+        (prefill)."""
+        cfg, w = self.cfg, self.weights()
+        s = x.shape[1]
         for idx, layer in enumerate(w.layers):
-            x = self._block(x, layer)
+            kv: list | None = None if cache is None else []
+            if self.attention:
+                x = self._attn_block(x, layer, positions, self.layer_window(idx), prefix_len,
+                                     kv)
+                if cache is not None:
+                    cache["k"][idx, :, :s], cache["v"][idx, :, :s] = kv
+                continue
+            ln1, p = layer
+            h = rms_norm(x, ln1, cfg.norm_eps)
+            if cache is None:
+                x = x + ssm_mod.ssm_block(h, p, cfg)
+            else:
+                out, sc = ssm_mod.ssm_block(h, p, cfg, return_cache=True)
+                x = x + out
+                cache["ssm_conv"][idx] = sc.conv
+                cache["ssm_state"][idx] = sc.state
             if self._applies_shared(idx):
-                x = self._shared_block(x, positions, prefix_len)
-        return rms_norm(x, w.final_norm, self.cfg.norm_eps)
+                x = self._attn_block(x, w.shared, positions, 0, prefix_len, kv)
+                if cache is not None:
+                    app = (idx + 1) // cfg.shared_attn_every - 1
+                    cache["shared_k"][app, :, :s], cache["shared_v"][app, :, :s] = kv
+        return rms_norm(x, w.final_norm, cfg.norm_eps)
 
     @torch.no_grad()
     def forward_logits(self, batch: dict) -> torch.Tensor:
-        """Full-sequence logits (B, S, V) f32."""
+        """Full-sequence logits (B, S, V) f32 (vlm: the patch prefix's too)."""
         x, prefix_len = self.embed_inputs(batch)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
@@ -236,14 +340,17 @@ class Model(nn.Module):
         cfg = self.cfg
         cd = _dtype(cfg.compute_dtype)
         dev = self.device
+        cache: dict = {"pos": 0}
+        if self.attention:
+            shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+            cache["k"] = torch.zeros(shape, dtype=cd, device=dev)
+            cache["v"] = torch.zeros(shape, dtype=cd, device=dev)
+            return cache
         conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
-        cache: dict = {
-            "pos": 0,
-            "ssm_conv": torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1, conv_dim),
-                                    dtype=cd, device=dev),
-            "ssm_state": torch.zeros((cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_state,
-                                      cfg.ssm_head_dim), dtype=torch.float32, device=dev),
-        }
+        cache["ssm_conv"] = torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1, conv_dim),
+                                        dtype=cd, device=dev)
+        cache["ssm_state"] = torch.zeros((cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_state,
+                                          cfg.ssm_head_dim), dtype=torch.float32, device=dev)
         if self.shared is not None:
             napp = cfg.n_layers // cfg.shared_attn_every
             shape = (napp, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
@@ -261,20 +368,27 @@ class Model(nn.Module):
         pos = int(cache["pos"])
         b = x.shape[0]
         positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
-        for idx, (ln1, p) in enumerate(w.layers):
-            hn = rms_norm(x, ln1, cfg.norm_eps)
+
+        def attn(x, blk, k_cache, v_cache, window):
+            x = x + self._attn_decode(rms_norm(x, blk.ln1, cfg.norm_eps), blk.attn, k_cache,
+                                      v_cache, pos, positions, window)
+            return x + self._ffn(rms_norm(x, blk.ln2, cfg.norm_eps), blk)
+
+        for idx, layer in enumerate(w.layers):
+            if self.attention:
+                x = attn(x, layer, cache["k"][idx], cache["v"][idx], self.layer_window(idx))
+                continue
+            ln1, p = layer
             out, sc = ssm_mod.ssm_decode_step(
-                hn, p, ssm_mod.SSMCache(conv=cache["ssm_conv"][idx],
-                                        state=cache["ssm_state"][idx]), cfg)
+                rms_norm(x, ln1, cfg.norm_eps), p,
+                ssm_mod.SSMCache(conv=cache["ssm_conv"][idx], state=cache["ssm_state"][idx]),
+                cfg)
             x = x + out
             cache["ssm_conv"][idx] = sc.conv
             cache["ssm_state"][idx] = sc.state
             if self._applies_shared(idx):
                 app = (idx + 1) // cfg.shared_attn_every - 1
-                x = x + self._attn_decode(rms_norm(x, w.shared.ln1, cfg.norm_eps),
-                                          w.shared.attn, cache["shared_k"][app],
-                                          cache["shared_v"][app], pos, positions, 0)
-                x = x + mlp_block(rms_norm(x, w.shared.ln2, cfg.norm_eps), w.shared.mlp)
+                x = attn(x, w.shared, cache["shared_k"][app], cache["shared_v"][app], 0)
         x = rms_norm(x, w.final_norm, cfg.norm_eps)
         cache["pos"] = pos + 1
         return self.logits(x)[:, 0], cache
@@ -297,30 +411,13 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def prefill(self, batch: dict, max_len: int) -> tuple[torch.Tensor, dict]:
-        """Process a full prompt; returns (last-token logits (B, V), cache)."""
+        """Process a full prompt (vlm: patches, then text); returns the last
+        position's logits (B, V) and the cache, ``pos`` = the prompt's length
+        with its prefix."""
         x, prefix_len = self.embed_inputs(batch)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
-        return self._prefill_ssm(x, positions, prefix_len, self.cache_init(b, max_len))
-
-    def _prefill_ssm(self, x, positions, prefix_len, cache):
-        """SSM / hybrid prefill: fills the SSD states, the conv tails and the
-        shared block's K/V slots."""
-        cfg = self.cfg
-        w = self.weights()
-        s = x.shape[1]
-        for idx, (ln1, p) in enumerate(w.layers):
-            out, sc = ssm_mod.ssm_block(rms_norm(x, ln1, cfg.norm_eps), p, cfg,
-                                        return_cache=True)
-            x = x + out
-            cache["ssm_conv"][idx] = sc.conv
-            cache["ssm_state"][idx] = sc.state
-            if self._applies_shared(idx):
-                app = (idx + 1) // cfg.shared_attn_every - 1
-                kv: list = []
-                x = self._shared_block(x, positions, prefix_len, kv_out=kv)
-                cache["shared_k"][app, :, :s] = kv[0]
-                cache["shared_v"][app, :, :s] = kv[1]
-        x = rms_norm(x, w.final_norm, cfg.norm_eps)
+        cache = self.cache_init(b, max_len)
+        x = self.backbone(x, positions, prefix_len, cache)
         cache["pos"] = s
         return self.logits(x[:, -1:])[:, 0], cache

@@ -707,3 +707,45 @@ def test_serving_threaded_driver_captures_on_its_thread(dev):
         eng.stop()
     assert not eng.running and eng.stats()["graph_captures"] == 1
     assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+def test_moe_block_f32_on_the_card_matches_the_cpu(dev):
+    """The f32 expert products with TF32 off, and the stable dispatch:
+    granite's 40 experts top-8 at a reduced width, with a capacity that
+    overflows (the card and the CPU drop the same choices)."""
+    from repro_torch.models import layers
+
+    d, e, ff = 64, 40, 32
+    x = _randn((2, 96, d), dev, 60)
+    p = layers.MoEParams(*(_randn(s, dev, 61 + i) * s[-2] ** -0.5 for i, s in enumerate(
+        [(d, e), (e, d, ff), (e, d, ff), (e, ff, d)])))
+    out, aux = layers.moe_block(x, p, 8, 0.5)
+    cpu_out, cpu_aux = layers.moe_block(x.cpu(), layers.MoEParams(*(a.cpu() for a in p)), 8, 0.5)
+    scale = cpu_out.abs().max().item()
+    assert (out.cpu() - cpu_out).abs().max().item() <= 1e-5 * scale
+    assert abs(aux.item() - cpu_aux.item()) <= 1e-5 * cpu_aux.item()
+
+
+def test_gemma2_shaped_decode_step_on_the_card_matches_the_cpu(dev):
+    """gemma2-9b's head layout (16 heads over 8 KV heads of dim 256, window
+    on the even layer, softcaps) at 2 layers and a narrow width, f32: a
+    prefill past the window (K5 on the card) and one decode step, card
+    against CPU with the same weights."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import Model
+
+    cfg = dataclasses.replace(get_config("gemma2-9b"), n_layers=2, d_model=512, d_ff=1024,
+                              vocab=1024, window=64, compute_dtype="float32")
+    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = Model(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab, (2, 97), generator=torch.Generator().manual_seed(1))
+    logits = {}
+    for where, model in (("cpu", cpu), ("cuda", card)):
+        t = toks.to(model.device)
+        before = _build.launch_counts["flash_attention"]
+        _, cache = model.prefill({"tokens": t[:, :96]}, 97)
+        assert _build.launch_counts["flash_attention"] - before == (2 if where == "cuda" else 0)
+        logits[where] = model.decode_step(cache, t[:, 96:])[0].cpu()
+    scale = logits["cpu"].abs().max().item()
+    assert (logits["cuda"] - logits["cpu"]).abs().max().item() <= 1e-3 * scale

@@ -1,5 +1,8 @@
 """The port's LM serving path (ssm / hybrid families) against the JAX package.
 
+The other families are held in ``tests/test_torch_lm_families.py`` and
+``tests/test_torch_moe.py``.
+
 The same inputs, made with numpy from a seed, go through both packages; JAX
 parameters reach the port through ``repro_torch.convert.lm_params_from_numpy``.
 The Pallas kernels run as the JAX package's own tests run them, with
@@ -291,13 +294,6 @@ def test_every_arch_resolves_to_the_reference_config():
     for arch in list_archs():
         assert get_config(arch).__dict__ == jget_config(arch).__dict__, arch
         assert get_config(arch).reduced().__dict__ == jget_config(arch).reduced().__dict__
-
-
-@pytest.mark.parametrize("arch", ["gemma2-9b", "granite-moe-3b-a800m", "hubert-xlarge",
-                                  "paligemma-3b"])
-def test_other_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Model(get_config(arch).reduced(), device="cpu")
 
 
 def test_init_draws_the_reference_distributions():
