@@ -140,6 +140,30 @@ Phases, each printed on its own lines, none of them allowed to fail:
                  of 512 masked frames) at full width, 2 layers, bf16: the
                  card against the CPU with the same weights, prefill and 4
                  teacher-forced decode steps; the logits agree;
+                 each serving path's second run gives the first run's
+                 greedy tokens (the MoE combine has no atomics);
+ 25. train-small — one make_train_step of zamba2-1.2b at full width, 6
+                 layers, f32 and then bf16, 1 x 128 tokens, on the card
+                 against the same step on the CPU from the same weights:
+                 the loss, the grad norm, every gradient leaf and the
+                 updated parameters agree (K5 2, K6 12: forward and each
+                 layer's recompute);
+ 26. train     — the training entry point (repro_torch.launch.train --task
+                 lm) at zamba2-1.2b's full size, bf16, batch 4 x 1024, 6
+                 steps: finite losses and grad norms, K5 12 and K6 76
+                 launches a step; warm step ms, tokens/s, peak bytes, and
+                 one more step under torch.profiler (device time by kernel
+                 group, busy share; the plain backward of K5/K6 by CUDA
+                 events); then the same command with a checkpoint every 3
+                 steps and a failure at step 4: one restart from step 3,
+                 the restored state equal to the saved one bit for bit, the
+                 losses and final parameters against the uninterrupted run;
+ 27. check train — every K5 and K6 launch of one more step held against
+                 the plain version on its own inputs as it runs;
+ 28. train-moe — granite-moe-3b-a800m at full width, 4 layers, batch 4 x
+                 1024, 3 steps: the aux term, the first step's loss equal
+                 in a second fresh run, one layer's moe_block twice under
+                 torch.cuda.set_sync_debug_mode("error"), bit-identical;
  24. summary   — one JSON line {"kernels": [...]}, then the last line
                  {"ok": true, "device": {...}}.
 Every path runs with the launch counts set to 0 just before it, and checks
@@ -1102,6 +1126,8 @@ def serve_twice(torch, tag, argv, wraps=()):
           f"{res2['decode_ms']:.3f}, tok_per_s {res2['tok_per_s']:.1f}, peak_device_bytes "
           f"{res2['peak_device_bytes']}; the same tokens as the first run: "
           f"{bool(np.array_equal(res2['tokens'], res['tokens']))}")
+    check(bool(np.array_equal(res2['tokens'], res['tokens'])),
+          f"{tag}: the second run's greedy tokens differ from the first's")
     del res2
     torch.cuda.empty_cache()
     return res, counts
@@ -1509,6 +1535,362 @@ def lm_family_phases(torch, dev):
         torch.cuda.empty_cache()
     paths["lm-families-small"] = small_counts
     return paths, max(abs_dense, abs_moe)
+
+
+# ---------------------------------------------------------------------- #
+# LM training (slice 8): [train-small], [train], [check train], [train-moe]
+# ---------------------------------------------------------------------- #
+# [train]: launch.train --task lm at zamba2-1.2b's full size (1.2 B
+# parameters; f32 masters, gradients and AdamW's two moments ~19 GB), bf16
+# compute, remat "block": 6 steps of 4 x 1024 tokens, a checkpoint every 3
+# steps, an injected failure at step 4 (resumed from step 3).
+TRAIN_ARGV = ["--task", "lm", "--arch", LM_ARCH, "--preset", "full", "--batch", "4",
+              "--seq", "1024", "--steps", "6", "--log-every", "1"]
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 3, 4
+# [train-small]: zamba2 at full width, 6 layers, one step card against CPU
+# from the same weights and batch (1 x 128 tokens: one SSD chunk).
+TRAIN_SMALL_SEQ = 128
+# The bars of [train-small], card against CPU, with their reasons.  f32: the
+# forward agrees to ~1e-6 (LM_SMALL_RTOL's 1e-3 on logits is its bar), the
+# backward runs the same plain functions in other summation orders: loss
+# 1e-4 relative, grad norm 1e-3, each gradient leaf 1e-3 of its largest |g|.
+# bf16: the bars of tests/test_torch_train.py, which hold the bf16 port
+# against the JAX package (3.2e-2 of a leaf seen there): loss 1e-2, grad
+# norm 5e-2, each leaf 1e-1.  The updated parameters: the first AdamW step
+# moves each by lr·g/(|g| + eps), a sign where |g| >> eps, so the two agree
+# to 1e-2 lr wherever |g| stands above the leaf's gradient bar, and by at
+# most 2 lr where the two gradients may differ in sign.
+TRAIN_SMALL_BARS = {"float32": dict(loss=1e-4, grad_norm=1e-3, leaf=1e-3),
+                    "bfloat16": dict(loss=1e-2, grad_norm=5e-2, leaf=1e-1)}
+# [train-moe]: granite-moe-3b-a800m at full width, 4 of its 32 layers, bf16.
+TRAIN_MOE_LAYERS, TRAIN_MOE_STEPS = 4, 3
+
+
+def tree_fingerprint(torch, tree) -> list:
+    """Two integer sums of each leaf's bits (the bits summed, and weighted
+    by position mod 8191): equal trees give equal lists, and a changed bit
+    changes both."""
+    sums = []
+    for leaf in tree:
+        v = leaf.detach().contiguous().reshape(-1)
+        v = v.view(torch.int16 if v.element_size() == 2 else torch.int32).long()
+        w = torch.arange(v.numel(), device=v.device) % 8191 + 1
+        sums.append(torch.stack([v.sum(), (v * w).sum()]))
+    return torch.stack(sums).cpu().tolist()
+
+
+def state_leaves(state: dict) -> list:
+    """A launcher state tree's tensors in a fixed order."""
+    opt = state["opt"]
+    return ([state["params"][k] for k in sorted(state["params"])] + [opt["step"]]
+            + [opt["m"][k] for k in sorted(opt["m"])] + [opt["v"][k] for k in sorted(opt["v"])])
+
+
+def train_small(torch, dev, compute_dtype):
+    """[train-small]: one make_train_step on the card against the same step
+    on the CPU.  Returns the card's launch counts."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokens import batch_for_config, to_device
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import optim
+    from repro_torch.train.step import make_train_step
+
+    tag = "train-small" if compute_dtype == "float32" else "train-small-bf16"
+    bars = TRAIN_SMALL_BARS[compute_dtype]
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_SMALL_LAYERS,
+                              compute_dtype=compute_dtype)
+    cpu_model = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card_model = Model(cfg, device=dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+    batch = batch_for_config(cfg, 1, TRAIN_SMALL_SEQ, 0)
+    lr = optim.AdamWConfig().lr
+    out = {}
+    t0 = time.perf_counter()
+    for where, model in (("cpu", cpu_model), ("cuda", card_model)):
+        _build.reset_launch_counts()           # read after the card's run, the last
+        step_fn = make_train_step(model)
+        _, met = step_fn(optim.adamw_init(dict(model.named_parameters())),
+                         to_device(batch, model.device))
+        out[where] = dict(met={k: float(v) for k, v in met.items()},
+                          grads={k: p.grad.cpu() for k, p in model.named_parameters()},
+                          params={k: p.detach().cpu() for k, p in model.named_parameters()})
+    counts = dict(_build.launch_counts)
+    cpu, card = out["cpu"], out["cuda"]
+    rel = lambda k: abs(card["met"][k] - cpu["met"][k]) / abs(cpu["met"][k])
+    worst_leaf, worst_name, worst_p, flips = 0.0, "", 0.0, 0
+    for k, g in cpu["grads"].items():
+        scale = max(g.abs().max().item(), 1e-30)
+        e = (card["grads"][k] - g).abs().max().item() / scale
+        if e > worst_leaf:
+            worst_leaf, worst_name = e, k
+        dp = (card["params"][k] - cpu["params"][k]).abs()
+        worst_p = max(worst_p, dp.max().item() / lr)
+        # entries off by more than 1e-2 lr: each must be one whose gradient
+        # lies within the leaf's bar of zero
+        off = dp > 1e-2 * lr
+        flips += int(off.sum())
+        check(bool((g[off].abs() <= bars["leaf"] * scale).all()),
+              f"{tag}: {k}'s update differs where its gradient is above the bar")
+    print(f"[{tag}] {LM_ARCH} full width, {LM_SMALL_LAYERS} layers, {compute_dtype}, batch 1 x "
+          f"{TRAIN_SMALL_SEQ}, one make_train_step, card vs CPU: loss {card['met']['loss']:.6f} "
+          f"vs {cpu['met']['loss']:.6f} (rel {rel('loss'):.3e}, bar {bars['loss']:g}), grad norm "
+          f"{card['met']['grad_norm']:.6f} vs {cpu['met']['grad_norm']:.6f} (rel "
+          f"{rel('grad_norm'):.3e}, bar {bars['grad_norm']:g}), worst gradient leaf {worst_name} "
+          f"{worst_leaf:.3e} of its largest |g| (bar {bars['leaf']:g}), updated parameters "
+          f"at most {worst_p:.3e} lr apart ({flips} entries beyond 1e-2 lr, each with |g| "
+          f"under the leaf's bar); {time.perf_counter() - t0:.1f} s both; card launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    check(rel("loss") <= bars["loss"] and rel("grad_norm") <= bars["grad_norm"]
+          and worst_leaf <= bars["leaf"] and worst_p <= 2.0 + 1e-3,
+          f"{tag}: the card and the CPU disagree")
+    napp = LM_SMALL_LAYERS // cfg.shared_attn_every
+    check(counts["flash_attention"] == 2 * napp and counts["ssd_chunk"] == 2 * LM_SMALL_LAYERS,
+          f"{tag}: launches {counts}")
+    del cpu_model, card_model, out
+    torch.cuda.empty_cache()
+    return counts
+
+
+def backward_timer(torch, store: list):
+    """Wrappers for K5's and K6's autograd backward (the plain versions'
+    gradient) that record CUDA events around each call into ``store``."""
+    def make(fn):
+        def timed(ctx, *grads):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(ctx, *grads)
+            b.record()
+            store.append((a, b))
+            return out
+        return staticmethod(timed)
+    return make
+
+
+def train_phases(torch, dev):
+    """[train-small], [train], [check train] and [train-moe].  Returns each
+    path's launch counts."""
+    import numpy as np
+
+    from repro_torch.ckpt import checkpoint as ckpt_mod
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokens import batch_for_config, to_device
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.attention import kernel as attn_kern, ops as attn_ops
+    from repro_torch.kernels.attention import ref as attn_ref
+    from repro_torch.kernels.ssd import kernel as ssd_kern, ops as ssd_ops, ref as ssd_ref
+    from repro_torch.launch import serve, train
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import optim
+    from repro_torch.train.step import make_train_step
+
+    paths = {}
+    small = {name: 0 for name in _build.launch_counts}
+    for dtype in ("float32", "bfloat16"):
+        for k_, v_ in train_small(torch, dev, dtype).items():
+            small[k_] += v_
+    paths["train-small"] = small
+
+    # ---- [train]: the entry point, uninterrupted ------------------------ #
+    cfg = get_config(LM_ARCH)
+    napp = cfg.n_layers // cfg.shared_attn_every
+    per_step = dict(flash_attention=2 * napp, ssd_chunk=2 * cfg.n_layers)   # forward + recompute
+    steps = int(TRAIN_ARGV[TRAIN_ARGV.index("--steps") + 1])
+    tokens_step = 4 * 1024
+    _build.reset_launch_counts()
+    res = train.main(TRAIN_ARGV)
+    counts = dict(_build.launch_counts)
+    paths["train"] = counts
+    want = {name: 0 for name in counts}
+    want.update({k_: v_ * steps for k_, v_ in per_step.items()})
+    print(f"[train] {res['arch']} {res['n_layers']} layers d_model {res['d_model']} "
+          f"{res['compute_dtype']}, {res['n_params']} parameters, batch {res['batch']} x seq "
+          f"{res['seq']}, {res['steps']} steps: losses {[round(v, 6) for v in res['losses']]}, "
+          f"grad norms {[round(v, 4) for v in res['grad_norms']]}; step ms "
+          f"{[round(v, 1) for v in res['step_ms']]}; warm step {res['warm_step_ms']:.3f} ms, "
+          f"{res['tokens_per_s']:.1f} tokens/s, peak_device_bytes {res['peak_device_bytes']}; "
+          f"launches {json.dumps(counts)}; per step K5 {counts['flash_attention'] / steps:g} "
+          f"(expected {per_step['flash_attention']}: {napp} shared-block applications, forward "
+          f"and recompute), K6 {counts['ssd_chunk'] / steps:g} (expected {per_step['ssd_chunk']})")
+    check(all(math.isfinite(v) for v in res["losses"] + res["grad_norms"]),
+          "train: a loss or grad norm is not finite")
+    check(counts == want, f"train: launches {counts}, expected {want}")
+    model, opt = res["model"], res["opt_state"]
+    losses_a = res["losses"]
+    final_a = {k_: p.detach().to("cpu", copy=True) for k_, p in model.named_parameters()}
+    step_fn = make_train_step(model)
+
+    def next_batch(k_):
+        return to_device(batch_for_config(model.cfg, 4, 1024, k_), dev)
+
+    # ---- two more warm steps: the plain backward's device time by CUDA
+    # events around each call, then one step under torch.profiler --------- #
+    spans = []
+    saved = (attn_ops._Attention.backward, ssd_ops._SSD.backward)
+    attn_ops._Attention.backward = backward_timer(torch, spans)(saved[0])
+    ssd_ops._SSD.backward = backward_timer(torch, spans)(saved[1])
+    try:
+        batch = next_batch(steps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt, _ = step_fn(opt, batch)
+        torch.cuda.synchronize()
+        timed_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        attn_ops._Attention.backward, ssd_ops._SSD.backward = saved
+    plain_bwd = sum(a.elapsed_time(b) for a, b in spans)
+    box = {}
+    batch = next_batch(steps + 1)
+    prof = serve.profile_device(dev, lambda: box.update(out=step_fn(opt, batch)))
+    opt = box["out"][0]
+    groups = "; ".join(f"{g}: {v['ms']:.3f} ms in {v['kernels']}" for g, v in
+                       prof["groups"].items())
+    print(f"[train] one warm step with CUDA events around the backward of K5 and K6: "
+          f"{timed_ms:.3f} ms, of which the plain backward spans {plain_bwd:.3f} ms in "
+          f"{len(spans)} calls")
+    print(f"[train] one warm step under torch.profiler: wall {prof['wall_ms']:.3f} ms, device "
+          f"busy {prof['busy_ms']:.3f} ms ({prof['busy_share']:.1%} of the profiled wall, "
+          f"{prof['busy_ms'] / res['warm_step_ms']:.1%} of the unprofiled warm step); {groups}")
+    # ---- [check train]: every K5 / K6 launch of one step against the plain
+    # version on its own inputs, as it runs ------------------------------- #
+    seen5, seen6 = [], []
+    orig5, orig6 = attn_kern.flash_attention_cuda, ssd_kern.ssd_chunk_cuda
+
+    def checked5(q, k, v, **kw):
+        out = orig5(q, k, v, **kw)
+        with torch.no_grad():
+            seen5.append(errs(out, attn_ref.attention_ref(q, k, v, **kw)))
+        return out
+
+    def checked6(*args, **kw):
+        out = orig6(*args, **kw)
+        with torch.no_grad():
+            y_ref, _ = ssd_ref.ssd_chunked_ref(*args[:7])
+            seen6.append(errs(out[0] if isinstance(out, tuple) else out, y_ref))
+        return out
+
+    attn_kern.flash_attention_cuda, ssd_kern.ssd_chunk_cuda = checked5, checked6
+    try:
+        opt, _ = step_fn(opt, next_batch(steps + 2))
+    finally:
+        attn_kern.flash_attention_cuda, ssd_kern.ssd_chunk_cuda = orig5, orig6
+    worst5 = max(e_ / k5_bf16_tol(s_) for e_, s_ in seen5)
+    worst6 = max(e_ / s_ for e_, s_ in seen6)
+    print(f"[check train] one step: K5 {len(seen5)} launches against the plain version, "
+          f"max_abs_err {max(e_ for e_, _ in seen5):.3e}, worst launch {worst5:.2f} bf16 steps "
+          f"(bar 1); K6 {len(seen6)} launches, y max_abs_err {max(e_ for e_, _ in seen6):.3e}, "
+          f"relative {worst6:.3e} (tol {K6_RTOL:g})")
+    check(len(seen5) == per_step["flash_attention"] and len(seen6) == per_step["ssd_chunk"],
+          "check train: the launches of one step are not the path's")
+    check(worst5 <= 1 and worst6 <= K6_RTOL, "check train: a launch disagrees with its plain "
+          "version")
+    del res, model, opt, step_fn, box, batch
+    torch.cuda.empty_cache()
+
+    # ---- [train]: the same command with checkpoints and a failure ------- #
+    ckpt_dir = tempfile.mkdtemp(prefix="train_ckpt_")
+    free = shutil.disk_usage(ckpt_dir).free
+    snaps, restored = {}, {}
+    orig_save, orig_restore = ckpt_mod.CheckpointManager.save_async, \
+        ckpt_mod.CheckpointManager.restore
+
+    def save_async(self, tree, step, extra=None):
+        snaps[step] = tree_fingerprint(torch, state_leaves(tree))
+        return orig_save(self, tree, step, extra)
+
+    def restore(self, template, step=None):
+        tree, got = orig_restore(self, template, step)
+        restored[got] = tree_fingerprint(torch, state_leaves(tree))
+        return tree, got
+
+    ckpt_mod.CheckpointManager.save_async = save_async
+    ckpt_mod.CheckpointManager.restore = restore
+    t0 = time.perf_counter()
+    try:
+        res = train.main(TRAIN_ARGV + ["--ckpt-dir", ckpt_dir, "--ckpt-every",
+                                       str(TRAIN_CKPT_EVERY), "--fail-at", str(TRAIN_FAIL_AT)])
+    finally:
+        ckpt_mod.CheckpointManager.save_async = orig_save
+        ckpt_mod.CheckpointManager.restore = orig_restore
+    wall = time.perf_counter() - t0
+    on_disk = sum(f.stat().st_size for f in Path(ckpt_dir).rglob("*") if f.is_file())
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    diff = max((p.detach().cpu() - final_a[k_]).abs().max().item()
+               for k_, p in res["model"].named_parameters())
+    bitwise = all(torch.equal(p.detach().cpu(), final_a[k_])
+                  for k_, p in res["model"].named_parameters())
+    loss_diff = max(abs(a_ - b_) for a_, b_ in zip(res["losses"], losses_a))
+    resumed = res["resumed_from"]
+    print(f"[train] with --ckpt-dir --ckpt-every {TRAIN_CKPT_EVERY} --fail-at {TRAIN_FAIL_AT}: "
+          f"restarts {res['restarts']}, resumed from {resumed}, steps run "
+          f"{len(res['step_ms'])}, {wall:.1f} s in all ({free / 2 ** 30:.1f} GiB free before, "
+          f"{on_disk} bytes of checkpoints); the restored state equals the saved one bit for "
+          f"bit: {bool(resumed) and all(restored[s_] == snaps[s_] for s_ in resumed)}; against "
+          f"the uninterrupted run: losses {[round(v, 6) for v in res['losses']]}, largest loss "
+          f"difference {loss_diff:.3e}, final parameters largest difference {diff:.3e}, "
+          f"bitwise {bitwise}")
+    check(res["restarts"] == 1 and resumed == [TRAIN_FAIL_AT - TRAIN_FAIL_AT % TRAIN_CKPT_EVERY],
+          f"train: restarts {res['restarts']}, resumed from {resumed}")
+    check(all(restored[s_] == snaps[s_] for s_ in resumed),
+          "train: the restored state differs from the saved one")
+    check(all(math.isfinite(v) for v in res["losses"] + res["grad_norms"]),
+          "train: a loss or grad norm of the resumed run is not finite")
+    del res, final_a
+    torch.cuda.empty_cache()
+
+    # ---- [train-moe]: granite-moe at full width, 4 layers --------------- #
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=TRAIN_MOE_LAYERS)
+
+    def moe_run(n_steps):
+        model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+        step_fn = make_train_step(model)
+        opt = optim.adamw_init(dict(model.named_parameters()))
+        mets = []
+        for k_ in range(n_steps):
+            opt, met = step_fn(opt, to_device(batch_for_config(cfg, MOE_BATCH, MOE_PROMPT, k_),
+                                              dev))
+            mets.append({n_: float(v_) for n_, v_ in met.items()})
+        return model, mets
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    model, mets = moe_run(TRAIN_MOE_STEPS)
+    wall = time.perf_counter() - t0
+    paths["train-moe"] = dict(_build.launch_counts)
+    # one layer's moe_block as training runs it (weights cast inside
+    # autograd), twice, with any read back to the host an error
+    moe_w = model._layer_weights(model.layers[0], model._cast).moe
+    x = (torch.randn((MOE_BATCH, MOE_PROMPT, cfg.d_model), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(71)).to(torch.bfloat16))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux = layers.moe_block(x, moe_w, cfg.top_k, cfg.capacity_factor)
+        out2, _ = layers.moe_block(x, moe_w, cfg.top_k, cfg.capacity_factor)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    same_block = bool(torch.equal(out, out2)) and aux.requires_grad
+    del model, moe_w, x, out, out2, aux
+    torch.cuda.empty_cache()
+    _, mets2 = moe_run(1)
+    same_first = mets2[0]["loss"] == mets[0]["loss"]
+    want = {name: 0 for name in paths["train-moe"]}
+    want["flash_attention"] = 2 * TRAIN_MOE_LAYERS * TRAIN_MOE_STEPS
+    print(f"[train-moe] {MOE_ARCH} full width, {TRAIN_MOE_LAYERS} layers, {cfg.compute_dtype}, "
+          f"batch {MOE_BATCH} x {MOE_PROMPT}, {TRAIN_MOE_STEPS} steps in {wall:.1f} s: losses "
+          f"{[round(m_['loss'], 6) for m_ in mets]}, ce {[round(m_['ce'], 6) for m_ in mets]}, "
+          f"aux {[round(m_['aux'], 6) for m_ in mets]} (0.01 aux in the loss), grad norms "
+          f"{[round(m_['grad_norm'], 4) for m_ in mets]}; the first step's loss bit-identical "
+          f"in a second fresh run: {same_first}; moe_block under set_sync_debug_mode('error'): "
+          f"no sync, two calls bit-identical: {same_block}; launches "
+          f"{json.dumps(paths['train-moe'])}")
+    check(all(math.isfinite(m_["loss"]) and math.isfinite(m_["grad_norm"]) and m_["aux"] > 0
+              for m_ in mets), "train-moe: a loss, aux or grad norm is not finite and positive")
+    check(same_first and same_block, "train-moe: the MoE step is not deterministic")
+    check(paths["train-moe"] == want, f"train-moe: launches {paths['train-moe']}")
+    torch.cuda.empty_cache()
+    return paths
 
 
 def main() -> int:
@@ -2991,6 +3373,8 @@ def main() -> int:
     lm_kernels, lm_counts = lm_phases(torch, dev)
     # ---- 21-23. the attention families -------------------------------- #
     family_counts, k5_family_err = lm_family_phases(torch, dev)
+    # ---- 25-28. LM training ------------------------------------------- #
+    train_counts = train_phases(torch, dev)
 
     # ---- 16. summary -------------------------------------------------- #
     by_path = {"main": main_counts, "lap": lap_counts, "accurate": acc_counts,
@@ -2998,7 +3382,7 @@ def main() -> int:
                "oneclass": oc_counts, "gp": gp_counts, "stream": stream_counts,
                "multilevel": ml_counts, "adaptive-rho": rho_counts,
                "stream-resume": resume_counts, "serve": serve_counts,
-               "baselines": base_counts, "lm": lm_counts, **family_counts}
+               "baselines": base_counts, "lm": lm_counts, **family_counts, **train_counts}
 
     def entry(name, source, replaces, path, main_row, rows_all, **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -3023,6 +3407,9 @@ def main() -> int:
     ] + lm_kernels
     for e in lm_kernels:          # K5 and K6 on every path (0 off the LM paths)
         e["launches_by_path"] = {p: c[e["name"]] for p, c in by_path.items()}
+        # the serving path's launches, and the training paths' added
+        e["launches_path"] = "lm, train, train-moe"
+        e["launches"] = sum(by_path[p][e["name"]] for p in ("lm", "train", "train-moe"))
     lm_kernels[0]["max_abs_err"] = max(lm_kernels[0]["max_abs_err"], k5_family_err)
     print(f"[summary] card {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,9 @@ the port's ADMM, a JAX-trained model into the port's scoring.  The one
 format difference is the root LU pivots: ``jax.scipy.linalg.lu_factor``
 returns 0-based pivots, ``torch.linalg.lu_factor`` 1-based (LAPACK) ones.
 An LM's parameter dict (``Model.init`` of the JAX package, as numpy) becomes
-the port's ``Model`` through ``lm_params_from_numpy``.
+the port's ``Model`` through ``lm_params_from_numpy``, and the way back,
+``lm_params_to_numpy``, gives a model's parameters (or their gradients) in
+that layout.
 """
 from __future__ import annotations
 
@@ -130,3 +132,41 @@ def lm_params_from_numpy(cfg: ModelConfig, params: dict, device="cuda") -> Model
     if model.shared is not None:
         put_block(model.shared, params["shared"])
     return model
+
+
+def lm_params_to_numpy(model: Model, grads: bool = False) -> dict:
+    """The port's parameters (``grads``: their ``.grad``, zeros where there
+    is none) as the nested dict of the JAX ``Model.init``: per-layer leaves
+    stacked over L, numpy copies in the parameters' type (bf16 as f32)."""
+    def get(p: torch.nn.Parameter) -> np.ndarray:
+        t = p.grad if grads else p
+        t = torch.zeros_like(p) if t is None else t.detach()
+        # a copy: on the CPU .numpy() would share the parameter's memory,
+        # which a training step then overwrites in place
+        return (t.float() if t.dtype == torch.bfloat16 else t).to("cpu", copy=True).numpy()
+
+    def block(b) -> dict:
+        out = {"ln1": get(b.ln1), "ln2": get(b.ln2),
+               "attn": {n: get(getattr(b, n)) for n in AttnParams._fields}}
+        if b.has_mlp:
+            out["mlp"] = {n: get(getattr(b, n)) for n in MLPParams._fields}
+        if b.moe is not None:
+            out["moe"] = {n: get(getattr(b.moe, n)) for n in MoEParams._fields}
+        return out
+
+    def stack(trees: list):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack(trees)
+
+    out = {"embed": get(model.embed), "final_norm": get(model.final_norm)}
+    for name in ("head", "vision_proj", "frontend_proj", "mask_emb"):
+        if getattr(model, name) is not None:
+            out[name] = get(getattr(model, name))
+    out["layers"] = stack([
+        block(lay) if isinstance(lay, AttnBlock) else
+        {"ln1": get(lay.ln1), "ssm": {n: get(getattr(lay, n)) for n in SSMParams._fields}}
+        for lay in model.layers])
+    if model.shared is not None:
+        out["shared"] = block(model.shared)
+    return out

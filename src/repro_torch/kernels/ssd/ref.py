@@ -32,10 +32,11 @@ def ssd_chunked_ref(x, dt, a, b_mat, c_mat, d_vec, chunk: int = 16):
     """
     bsz, s, h, p, g = _check(x, dt, a, b_mat, c_mat, d_vec, chunk)
     n = b_mat.shape[-1]
-    grp = torch.arange(h, device=x.device) // (h // g)
     x, dt = x.float(), dt.float()
-    b_full = b_mat.float()[:, :, grp]                     # (B, S, H, N)
-    c_full = c_mat.float()[:, :, grp]
+    # head i reads group i // (h // g): an expand, whose gradient is a sum
+    # (an index would add it with atomics on the card)
+    b_full, c_full = (m.float()[:, :, :, None].expand(bsz, s, g, h // g, n).reshape(bsz, s, h, n)
+                      for m in (b_mat, c_mat))             # (B, S, H, N)
     a, d_vec = a.float(), d_vec.float()
     tril = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
     state = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
@@ -48,7 +49,10 @@ def ssd_chunked_ref(x, dt, a, b_mat, c_mat, d_vec, chunk: int = 16):
         la = torch.cumsum(dtq, dim=1) * a                 # (B, Q, H)
         la_h = la.transpose(1, 2)                         # (B, H, Q)
         seg = la_h[:, :, :, None] - la_h[:, :, None, :]   # (B, H, Q, Q)
-        gate = torch.where(tril, torch.exp(seg), torch.zeros((), device=x.device))
+        # exp of -inf above the diagonal: the same zeros as the reference's
+        # where(tril, exp(seg), 0), but where seg overflows exp there the
+        # reference's gradient is 0 * inf = NaN and this one is 0
+        gate = torch.exp(torch.where(tril, seg, torch.full((), -torch.inf, device=x.device)))
         scores = torch.einsum("bihn,bjhn->bhij", cq, bq) * gate
         y_intra = torch.einsum("bhij,bjhp->bihp", scores, xq * dtq[..., None])
         y_state = torch.einsum("bihn,bhnp->bihp", cq * torch.exp(la)[..., None], state)

@@ -121,6 +121,38 @@ class MoEParams(NamedTuple):
     w_down: torch.Tensor   # (E, ffe, d)
 
 
+def expert_counts(idx: torch.Tensor, e: int, dtype: torch.dtype) -> torch.Tensor:
+    """How many entries of ``idx`` name each of ``e`` experts (bincount's
+    counts), as a scatter of ones: bincount reads its input's range back to
+    the host on CUDA."""
+    ones = torch.ones(idx.shape, dtype=dtype, device=idx.device)
+    return torch.zeros(e, dtype=dtype, device=idx.device).scatter_add_(0, idx, ones)
+
+
+def combine_top_k(gathered: torch.Tensor, order: torch.Tensor,
+                  gate_idx: torch.Tensor) -> torch.Tensor:
+    """Each token's k expert rows summed, with no atomics.
+
+    ``gathered`` (T k, d) holds the rows in the order of the stable sort by
+    expert (``order`` its permutation of the flat (T, k) choices),
+    ``gate_idx`` (T, k) the experts.  The reference's scatter
+    (``.at[st].add``) adds a token's rows in update order, the sorted one,
+    i.e. by ascending expert id.  So: undo the sort, lay the rows out
+    (T, k, d), order each token's k rows by expert id and add them one at a
+    time in the rows' type, from zero."""
+    t, k = gate_idx.shape
+    d = gathered.shape[-1]
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(t * k, device=order.device)
+    rows = gathered[inv].reshape(t, k, d)
+    by_expert = torch.argsort(gate_idx, dim=-1)          # a token's experts are distinct
+    rows = torch.gather(rows, 1, by_expert[..., None].expand(t, k, d))
+    out = torch.zeros((t, d), dtype=gathered.dtype, device=gathered.device)
+    for j in range(k):
+        out = out + rows[:, j]
+    return out
+
+
 def _moe_dispatch_chunk(xf: torch.Tensor, p: MoEParams, top_k: int,
                         cap: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Dispatch, compute and combine for one token chunk xf (T, d).
@@ -133,7 +165,8 @@ def _moe_dispatch_chunk(xf: torch.Tensor, p: MoEParams, top_k: int,
     follows them, which gives the same output.  The expert products take
     the compute-type operands widened to f32 (exact) into an f32 product, as
     ``preferred_element_type=f32`` has them; on the card that needs TF32 off
-    (PyTorch's default)."""
+    (PyTorch's default).  Nothing here reads a value back to the host, and
+    the combine uses no atomics: on the card two runs give the same bits."""
     t, d = xf.shape
     e = p.router.shape[-1]
     dev = xf.device
@@ -148,21 +181,23 @@ def _moe_dispatch_chunk(xf: torch.Tensor, p: MoEParams, top_k: int,
 
     # Switch-style load-balancing auxiliary loss.
     flat_e = gate_idx.reshape(-1)
-    ce = torch.bincount(flat_e, minlength=e).float() / (t * top_k)
+    ce = expert_counts(flat_e, e, torch.float32) / (t * top_k)
     aux = e * torch.sum(probs.mean(0) * ce)
 
-    flat_t = torch.arange(t, device=dev).repeat_interleave(top_k)
     # stable, or the choices past an expert's capacity differ from the reference's
     se, order = torch.sort(flat_e, stable=True)
-    st, sw = flat_t[order], gate_vals.reshape(-1)[order]
-    counts = torch.bincount(se, minlength=e)
+    sw = gate_vals.reshape(-1)[order]
+    counts = expert_counts(se, e, torch.long)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(t * top_k, device=dev) - starts[se]
     keep = pos < cap
     slot = torch.where(keep, se * cap + pos, torch.full_like(se, e * cap))
 
+    # token t's k copies (an expand, whose gradient is a sum, not atomics)
+    # in sorted order
+    xs = xf[:, None].expand(t, top_k, d).reshape(t * top_k, d)[order]
     buf = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=dev)
-    buf[slot] = torch.where(keep[:, None], xf[st], torch.zeros((), dtype=xf.dtype, device=dev))
+    buf[slot] = torch.where(keep[:, None], xs, torch.zeros((), dtype=xf.dtype, device=dev))
     buf = buf[:-1].reshape(e, cap, d).float()
     hgate = torch.bmm(buf, p.w_gate.float())
     hup = torch.bmm(buf, p.w_up.float())
@@ -171,7 +206,7 @@ def _moe_dispatch_chunk(xf: torch.Tensor, p: MoEParams, top_k: int,
     yflat = torch.cat([hout.reshape(e * cap, d),
                        torch.zeros((1, d), dtype=xf.dtype, device=dev)])
     gathered = yflat[slot] * (sw * keep)[:, None].to(xf.dtype)
-    out = torch.zeros((t, d), dtype=xf.dtype, device=dev).index_add_(0, st, gathered)
+    out = combine_top_k(gathered, order, gate_idx)
     return out, aux
 
 

@@ -25,9 +25,22 @@ torch, as the reference does.
 Parameters are kept in ``param_dtype`` (f32 masters).  Like the
 reference's ``_cast_tree``, every float parameter enters the compute in
 ``compute_dtype`` — ``a_log``, ``d_skip`` and ``dt_bias`` included, which
-under bf16 rounds them before ``ssm_block`` widens them again.  The cast
-copies are made once, at the first forward, and kept (the cast is exact
-to repeat); ``init`` drops them.  Serving updates the cache dict in place.
+under bf16 rounds them before ``ssm_block`` widens them again.  Serving
+(no gradient) makes the cast copies once, at the first forward, and keeps
+them (the cast is exact to repeat); ``init`` and ``weights_changed`` drop
+them.  Serving updates the cache dict in place.
+
+Training (``loss_fn`` with grad mode on and the parameters requiring grad,
+see ``trainable``) casts inside autograd on every forward instead: a
+layer's weights inside its own body, so that under ``remat == "block"``
+(one ``torch.utils.checkpoint`` a layer, zamba2's shared block inside the
+body of the layer it follows, as in the reference's scan body) the casts
+are recomputed with the rest.  MoE's aux loss is summed over the layers.
+The loss is the reference's: ``chunked_ce`` over ``loss_chunk`` positions
+at a time, each chunk checkpointed (the (B, S, V) logits never exist at
+once), plus 0.01 aux.  K5 and K6 run in the forward (and again in each
+recompute); their backward is their plain versions' gradient
+(``kernels/*/ops.py``).
 """
 from __future__ import annotations
 
@@ -36,6 +49,7 @@ from types import SimpleNamespace
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
@@ -199,22 +213,51 @@ class Model(nn.Module):
         block.ln1.zero_()
         block.ln2.zero_()
 
+    def trainable(self) -> "Model":
+        """Make every parameter require grad: a forward under grad mode then
+        casts inside autograd and can be differentiated."""
+        self.requires_grad_(True)
+        self._cw = None
+        return self
+
+    def weights_changed(self) -> None:
+        """Drop the serving cast copies: the parameters were updated."""
+        self._cw = None
+
+    def _differentiated(self) -> bool:
+        return torch.is_grad_enabled() and self.embed.requires_grad
+
+    def _cast(self, p):
+        """``p`` in the compute type, inside autograd (a view where it is one)."""
+        return None if p is None else p.to(_dtype(self.cfg.compute_dtype))
+
     def weights(self) -> SimpleNamespace:
-        """Every parameter in the compute type (``_cast_tree``), made once."""
+        """Every parameter in the compute type (``_cast_tree``).  Serving:
+        made once and kept.  Training: the top-level weights cast anew on
+        each call, inside autograd, with ``layers`` and ``shared`` None (the
+        backbone casts a layer's weights inside its body)."""
+        if self._differentiated():
+            return self._weights(self._cast, layers=False)
         if self._cw is None:
             cd = _dtype(self.cfg.compute_dtype)
-            c = lambda p: None if p is None else p.detach().to(cd)
-            self._cw = SimpleNamespace(
-                embed=c(self.embed), final_norm=c(self.final_norm),
-                head=c(self.embed).T if self.head is None else c(self.head),
-                layers=[self._block_weights(lay, c) if isinstance(lay, AttnBlock) else
-                        (c(lay.ln1), ssm_mod.SSMParams(
-                            *(c(getattr(lay, f)) for f in ssm_mod.SSMParams._fields)))
-                        for lay in self.layers],
-                shared=None if self.shared is None else self._block_weights(self.shared, c),
-                vision_proj=c(self.vision_proj), frontend_proj=c(self.frontend_proj),
-                mask_emb=c(self.mask_emb))
+            self._cw = self._weights(lambda p: None if p is None else p.detach().to(cd))
         return self._cw
+
+    def _weights(self, c, layers: bool = True) -> SimpleNamespace:
+        return SimpleNamespace(
+            embed=c(self.embed), final_norm=c(self.final_norm),
+            head=c(self.embed).T if self.head is None else c(self.head),
+            layers=[self._layer_weights(lay, c) for lay in self.layers] if layers else None,
+            shared=(None if self.shared is None or not layers
+                    else self._block_weights(self.shared, c)),
+            vision_proj=c(self.vision_proj), frontend_proj=c(self.frontend_proj),
+            mask_emb=c(self.mask_emb))
+
+    def _layer_weights(self, layer, c):
+        if isinstance(layer, AttnBlock):
+            return self._block_weights(layer, c)
+        return (c(layer.ln1), ssm_mod.SSMParams(
+            *(c(getattr(layer, f)) for f in ssm_mod.SSMParams._fields)))
 
     @staticmethod
     def _block_weights(block: AttnBlock, c) -> SimpleNamespace:
@@ -229,8 +272,9 @@ class Model(nn.Module):
     # ------------------------------------------------------------------ #
     # embedding / unembedding                                            #
     # ------------------------------------------------------------------ #
-    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        emb = self.weights().embed
+    def embed_tokens(self, tokens: torch.Tensor, w: SimpleNamespace | None = None
+                     ) -> torch.Tensor:
+        emb = (w or self.weights()).embed
         # the reference multiplies by a weakly typed scalar: it is rounded
         # to the compute type first
         return emb[tokens] * torch.tensor(self.cfg.d_model ** 0.5, dtype=emb.dtype)
@@ -248,9 +292,9 @@ class Model(nn.Module):
             return x, 0
         if cfg.frontend == "vision_stub":
             vis = batch["patches"].to(w.vision_proj.dtype) @ w.vision_proj
-            return (torch.cat([vis, self.embed_tokens(batch["tokens"])], dim=1),
+            return (torch.cat([vis, self.embed_tokens(batch["tokens"], w)], dim=1),
                     cfg.n_prefix_tokens)
-        return self.embed_tokens(batch["tokens"]), 0
+        return self.embed_tokens(batch["tokens"], w), 0
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -276,15 +320,16 @@ class Model(nn.Module):
 
     def _ffn(self, h, blk):
         """The block's feed-forward on its normed input: MLP, or MoE plus
-        arctic's parallel dense MLP.  MoE's aux loss is a training term."""
+        arctic's parallel dense MLP.  Returns (out, MoE's aux loss or None)."""
         if blk.moe is None:
-            return mlp_block(h, blk.mlp)
-        out, _ = moe_block(h, blk.moe, self.cfg.top_k, self.cfg.capacity_factor)
-        return out if blk.mlp is None else out + mlp_block(h, blk.mlp)
+            return mlp_block(h, blk.mlp), None
+        out, aux = moe_block(h, blk.moe, self.cfg.top_k, self.cfg.capacity_factor)
+        return (out if blk.mlp is None else out + mlp_block(h, blk.mlp)), aux
 
     def _attn_block(self, x, blk, positions, window, prefix_len, kv_out=None):
-        """Attention (K5 on the card) and feed-forward with their residuals;
-        ``kv_out`` receives the (k, v) the attention used (prefill's cache)."""
+        """Attention (K5 on the card) and feed-forward with their residuals:
+        (x, aux or None); ``kv_out`` receives the (k, v) the attention used
+        (prefill's cache)."""
         cfg = self.cfg
         h = rms_norm(x, blk.ln1, cfg.norm_eps)
         q, k, v = qkv(h, blk.attn, positions, cfg)
@@ -292,38 +337,74 @@ class Model(nn.Module):
             kv_out.extend((k, v))
         x = x + attention_block(h, blk.attn, positions, cfg, window, prefix_len,
                                 kv=(q, k, v))
-        return x + self._ffn(rms_norm(x, blk.ln2, cfg.norm_eps), blk)
+        out, aux = self._ffn(rms_norm(x, blk.ln2, cfg.norm_eps), blk)
+        return x + out, aux
+
+    def _layer(self, idx, lw, shared, x, positions, prefix_len, cache=None):
+        """Layer ``idx`` with weights ``lw``, then the shared block (weights
+        ``shared``) where it applies: (x, aux or None).  With ``cache``, also
+        fills the layer's KV slots, SSD state and conv tail (prefill)."""
+        cfg = self.cfg
+        s = x.shape[1]
+        kv: list | None = None if cache is None else []
+        if self.attention:
+            x, aux = self._attn_block(x, lw, positions, self.layer_window(idx), prefix_len, kv)
+            if cache is not None:
+                cache["k"][idx, :, :s], cache["v"][idx, :, :s] = kv
+            return x, aux
+        ln1, p = lw
+        h = rms_norm(x, ln1, cfg.norm_eps)
+        if cache is None:
+            x = x + ssm_mod.ssm_block(h, p, cfg)
+        else:
+            out, sc = ssm_mod.ssm_block(h, p, cfg, return_cache=True)
+            x = x + out
+            cache["ssm_conv"][idx] = sc.conv
+            cache["ssm_state"][idx] = sc.state
+        if self._applies_shared(idx):
+            x, _ = self._attn_block(x, shared, positions, 0, prefix_len, kv)
+            if cache is not None:
+                app = (idx + 1) // cfg.shared_attn_every - 1
+                cache["shared_k"][app, :, :s], cache["shared_v"][app, :, :s] = kv
+        return x, None
+
+    def _train_layer(self, idx, x, positions, prefix_len):
+        """Layer ``idx`` under autograd: its weights (and the shared block's
+        where it applies) cast here, so that a checkpoint recomputes them.
+        Returns (x, aux) with aux a tensor (0 without MoE)."""
+        layer = self.layers[idx]
+        lw = self._layer_weights(layer, self._cast)
+        shared = (self._block_weights(self.shared, self._cast)
+                  if self._applies_shared(idx) else None)
+        x, aux = self._layer(idx, lw, shared, x, positions, prefix_len)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device) if aux is None else aux
 
     def backbone(self, x: torch.Tensor, positions: torch.Tensor, prefix_len: int = 0,
-                 cache: dict | None = None) -> torch.Tensor:
-        """Every layer in order. Returns the final-normed hidden (B, S, d);
-        with ``cache``, also fills its KV slots, SSD states and conv tails
-        (prefill)."""
-        cfg, w = self.cfg, self.weights()
-        s = x.shape[1]
-        for idx, layer in enumerate(w.layers):
-            kv: list | None = None if cache is None else []
-            if self.attention:
-                x = self._attn_block(x, layer, positions, self.layer_window(idx), prefix_len,
-                                     kv)
-                if cache is not None:
-                    cache["k"][idx, :, :s], cache["v"][idx, :, :s] = kv
-                continue
-            ln1, p = layer
-            h = rms_norm(x, ln1, cfg.norm_eps)
-            if cache is None:
-                x = x + ssm_mod.ssm_block(h, p, cfg)
-            else:
-                out, sc = ssm_mod.ssm_block(h, p, cfg, return_cache=True)
-                x = x + out
-                cache["ssm_conv"][idx] = sc.conv
-                cache["ssm_state"][idx] = sc.state
-            if self._applies_shared(idx):
-                x = self._attn_block(x, w.shared, positions, 0, prefix_len, kv)
-                if cache is not None:
-                    app = (idx + 1) // cfg.shared_attn_every - 1
-                    cache["shared_k"][app, :, :s], cache["shared_v"][app, :, :s] = kv
-        return rms_norm(x, w.final_norm, cfg.norm_eps)
+                 cache: dict | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """Every layer in order. Returns (the final-normed hidden (B, S, d),
+        the aux loss summed over the layers, f32); with ``cache``, also fills
+        its KV slots, SSD states and conv tails (prefill).  Differentiated
+        (see ``trainable``), each layer casts its own weights and, under
+        ``remat == "block"``, runs under one activation checkpoint."""
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if self._differentiated():
+            if cache is not None:
+                raise ValueError("prefill fills a cache without gradients")
+            for idx in range(cfg.n_layers):
+                if cfg.remat == "block":
+                    x, a = checkpoint(self._train_layer, idx, x, positions, prefix_len,
+                                      use_reentrant=False)
+                else:
+                    x, a = self._train_layer(idx, x, positions, prefix_len)
+                aux = aux + a
+            return rms_norm(x, self.weights().final_norm, cfg.norm_eps), aux
+        w = self.weights()
+        for idx, lw in enumerate(w.layers):
+            x, a = self._layer(idx, lw, w.shared, x, positions, prefix_len, cache)
+            if a is not None:
+                aux = aux + a
+        return rms_norm(x, w.final_norm, cfg.norm_eps), aux
 
     @torch.no_grad()
     def forward_logits(self, batch: dict) -> torch.Tensor:
@@ -331,7 +412,56 @@ class Model(nn.Module):
         x, prefix_len = self.embed_inputs(batch)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
-        return self.logits(self.backbone(x, positions, prefix_len))
+        return self.logits(self.backbone(x, positions, prefix_len)[0])
+
+    # ------------------------------------------------------------------ #
+    # losses                                                             #
+    # ------------------------------------------------------------------ #
+    def _chunk_loss(self, h: torch.Tensor, labels: torch.Tensor):
+        """(sum of -log p(label), count) over one chunk; label -1 ignored."""
+        logits = self.logits(h)                                   # (B, cs, V) f32
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+        valid = (labels >= 0).float()
+        return torch.sum((logz - gold) * valid), torch.sum(valid)
+
+    def chunked_ce(self, hidden: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """Mean cross-entropy over the labels >= 0 (-1: padding or prefix),
+        ``loss_chunk`` positions at a time (the largest divisor of S up to
+        it), each chunk checkpointed under autograd: the (B, S, V) logits
+        are never materialised."""
+        s = hidden.shape[1]
+        cs = min(self.cfg.loss_chunk, s)
+        while s % cs:
+            cs -= 1
+        tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for c0 in range(0, s, cs):
+            h, lab = hidden[:, c0:c0 + cs], labels[:, c0:c0 + cs]
+            if self._differentiated():
+                dl, dc = checkpoint(self._chunk_loss, h, lab, use_reentrant=False)
+            else:
+                dl, dc = self._chunk_loss(h, lab)
+            tot, cnt = tot + dl, cnt + dc
+        return tot / torch.clamp(cnt, min=1.0)
+
+    def loss_fn(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """The training loss of ``batch`` (``tokens`` or the modality's
+        inputs, and ``labels`` (B, S)): (ce + 0.01 aux, {"ce", "aux"}).  vlm
+        drops the patch prefix from the hidden states; audio scores only the
+        positions of ``mask_indices``."""
+        cfg = self.cfg
+        x, prefix_len = self.embed_inputs(batch)
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        hidden, aux = self.backbone(x, positions, prefix_len)
+        labels = batch["labels"]
+        if cfg.frontend == "vision_stub":
+            hidden = hidden[:, cfg.n_prefix_tokens:]
+        if cfg.frontend == "audio_stub" and "mask_indices" in batch:
+            labels = torch.where(batch["mask_indices"], labels, torch.full_like(labels, -1))
+        ce = self.chunked_ce(hidden, labels)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------------ #
     # serving: prefill + decode                                          #
@@ -372,7 +502,7 @@ class Model(nn.Module):
         def attn(x, blk, k_cache, v_cache, window):
             x = x + self._attn_decode(rms_norm(x, blk.ln1, cfg.norm_eps), blk.attn, k_cache,
                                       v_cache, pos, positions, window)
-            return x + self._ffn(rms_norm(x, blk.ln2, cfg.norm_eps), blk)
+            return x + self._ffn(rms_norm(x, blk.ln2, cfg.norm_eps), blk)[0]
 
         for idx, layer in enumerate(w.layers):
             if self.attention:
@@ -418,6 +548,6 @@ class Model(nn.Module):
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
         cache = self.cache_init(b, max_len)
-        x = self.backbone(x, positions, prefix_len, cache)
+        x, _ = self.backbone(x, positions, prefix_len, cache)
         cache["pos"] = s
         return self.logits(x[:, -1:])[:, 0], cache

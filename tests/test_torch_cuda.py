@@ -9,6 +9,7 @@ This file imports torch and the port only, so it runs where jax is absent.
 Tolerances are those of ``chip_smoke.py``, with their reasons there.
 """
 import ctypes
+import math
 import dataclasses
 
 import numpy as np
@@ -749,3 +750,93 @@ def test_gemma2_shaped_decode_step_on_the_card_matches_the_cpu(dev):
         logits[where] = model.decode_step(cache, t[:, 96:])[0].cpu()
     scale = logits["cpu"].abs().max().item()
     assert (logits["cuda"] - logits["cpu"]).abs().max().item() <= 1e-3 * scale
+
+
+# --------------------------------------------------------------------- #
+# training (slice 8)                                                    #
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_autograd_launches_k5_and_takes_the_plain_gradient(dev, dtype):
+    """Under autograd the forward is one K5 launch and the backward the
+    plain version's gradient: the gradients equal autograd's through
+    attention_ref on the same inputs (bf16: one bf16 step of the largest)."""
+    q, k, v = (_randn((2, h, 128, 64), dev, 70 + i).to(dtype).requires_grad_()
+               for i, h in enumerate((8, 2, 2)))
+    g = _randn((2, 8, 128, 64), dev, 73).to(dtype)
+    before = _build.launch_counts["flash_attention"]
+    out = attn_ops.flash_attention(q, k, v, causal=True, window=32)
+    assert _build.launch_counts["flash_attention"] == before + 1
+    got = torch.autograd.grad(out, (q, k, v), g)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(attn_ref.attention_ref(qr, kr, vr, causal=True, window=32),
+                               (qr, kr, vr), g)
+    assert _build.launch_counts["flash_attention"] == before + 1
+    for a, b in zip(got, want):
+        scale = max(1.0, b.float().abs().max().item())
+        tol = 1e-6 if dtype == torch.float32 else 2.0 ** (math.floor(math.log2(scale)) - 7)
+        assert (a.float() - b.float()).abs().max().item() <= tol * scale
+
+
+def test_ssd_autograd_launches_k6_and_takes_the_plain_gradient(dev):
+    x, bm, cm = (_randn(s, dev, 80 + i) for i, s in enumerate(
+        [(2, 256, 4, 64), (2, 256, 1, 64), (2, 256, 1, 64)]))
+    dt = torch.rand((2, 256, 4), device=dev) * 0.1 + 1e-3
+    a, d = -torch.linspace(1.0, 4.0, 4, device=dev), torch.ones(4, device=dev)
+    leaves = [t.requires_grad_() for t in (x, dt, a, bm, cm, d)]
+    before = _build.launch_counts["ssd_chunk"]
+    y = ssd_ops.ssd_forward(*leaves, chunk=128)
+    assert _build.launch_counts["ssd_chunk"] == before + 1
+    got = torch.autograd.grad(y.square().sum(), leaves)
+    plain = [t.detach().requires_grad_() for t in leaves]
+    want = torch.autograd.grad(ssd_ref.ssd_chunked_ref(*plain, 128)[0].square().sum(), plain)
+    for a_, b_ in zip(got, want):
+        assert (a_ - b_).abs().max().item() <= 1e-4 * b_.abs().max().item()
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """zamba2's reduced config, f32: one make_train_step on the card against
+    the CPU from the same weights (K5 and K6 in the forward and each
+    recompute): loss, grad norm and every gradient leaf."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokens import batch_for_config, to_device
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import optim
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_config("zamba2-1.2b").reduced(compute_dtype="float32", n_layers=4)
+    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = Model(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    batch = batch_for_config(cfg, 2, 64, 0)
+    mets, grads = {}, {}
+    for where, model in (("cpu", cpu), ("cuda", card)):
+        before = dict(_build.launch_counts)
+        _, met = make_train_step(model)(optim.adamw_init(dict(model.named_parameters())),
+                                        to_device(batch, model.device))
+        mets[where] = {k: float(v) for k, v in met.items()}
+        grads[where] = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    assert _build.launch_counts["ssd_chunk"] - before["ssd_chunk"] == 2 * cfg.n_layers
+    assert _build.launch_counts["flash_attention"] - before["flash_attention"] == 2 * 2
+    assert mets["cuda"]["loss"] == pytest.approx(mets["cpu"]["loss"], rel=1e-5)
+    assert mets["cuda"]["grad_norm"] == pytest.approx(mets["cpu"]["grad_norm"], rel=1e-4)
+    for k, g in grads["cpu"].items():
+        assert (grads["cuda"][k] - g).abs().max().item() <= 1e-3 * g.abs().max().item(), k
+
+
+def test_moe_block_reads_nothing_back_and_repeats_on_the_card(dev):
+    """granite's 40 experts top-8 in bf16: no host sync in the dispatch and
+    the combine (set_sync_debug_mode "error"), and two calls bit-identical
+    (no atomics in the combine)."""
+    from repro_torch.models import layers
+
+    d, e, ff = 128, 40, 64
+    x = _randn((4, 256, d), dev, 90).to(torch.bfloat16)
+    p = layers.MoEParams(*((_randn(s, dev, 91 + i) * s[-2] ** -0.5).to(torch.bfloat16)
+                           for i, s in enumerate([(d, e), (e, d, ff), (e, d, ff), (e, ff, d)])))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [layers.moe_block(x, p, 8, 1.25) for _ in range(2)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])

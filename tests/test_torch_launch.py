@@ -80,8 +80,10 @@ def test_train_svm_grid_matches_the_jax_engine():
 
 
 def test_paths_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        train.main(["--task", "lm", "--device", "cpu"])
+    from repro_torch.train import grad_compress
+
+    with pytest.raises(NotImplementedError, match="item 13"):
+        grad_compress.make_compressed_allreduce(None)
     with pytest.raises(NotImplementedError, match="item 13"):
         serve.main(["--task", "svm", "--svm-mesh", "--device", "cpu"])
 

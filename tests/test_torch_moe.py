@@ -6,8 +6,12 @@ inputs: its output and the Switch aux loss, with a case whose capacity
 overflows (so the dropped choices must be the reference's) and one whose
 gates tie exactly (lax.top_k takes the lower expert first).  Tolerances:
 f32 1e-5 relative (f32 sums in another order); bf16 compute 2e-2 of the
-largest |value| (the f32 expert products agree; the combine adds k bf16
-terms a token in another order).
+largest |value| (the f32 expert products sum in other orders, and one
+ulp may move a bf16 router logit past another).  The combine itself, which
+adds each token's k rows in the reference's order with no atomics, is
+held bit for bit against the reference's scatter on the same rows, and the
+expert counts (a scatter of ones, no host read on the card) against
+bincount.
 
 granite-moe-3b-a800m and arctic-480b (its parallel dense FFN) are then held
 as ``tests/test_torch_lm_families.py`` holds the dense family: prefill,
@@ -114,6 +118,40 @@ def test_equal_gates_take_the_lower_expert_first(dtype):
     (jout, jaux), (tout, taux) = _both(x, p, 1, 4.0, dtype)
     np.testing.assert_allclose(tout, jout, rtol=1e-5, atol=1e-5 * np.abs(jout).max())
     assert taux == pytest.approx(jaux, rel=1e-5 if dtype == "float32" else 2e-2)
+
+
+def test_combine_adds_in_the_references_order():
+    """bf16 rows of 96 tokens, top 8 of 40 experts (each expert chosen by
+    many tokens): the combine equals the reference's ``.at[st].add`` bit
+    for bit, where the reversed order already differs.  So does not the
+    combine it replaces: ``index_add_`` on the CPU sums a token's bf16 rows
+    in f32 and rounds once (on the card, with atomics in any order)."""
+    rng = np.random.default_rng(5)
+    t, k, e, d = 96, 8, 40, 64
+    gate_idx = np.stack([rng.choice(e, k, replace=False) for _ in range(t)])
+    order = np.argsort(gate_idx.reshape(-1), kind="stable")
+    st = np.repeat(np.arange(t), k)[order]
+    rows = (rng.normal(size=(t * k, d)) * np.exp(rng.normal(size=(t * k, 1)) * 2)
+            ).astype(np.float32)
+    want = np.asarray(jnp.zeros((t, d), jnp.bfloat16).at[st].add(jnp.asarray(rows, jnp.bfloat16))
+                      .astype(jnp.float32))
+    trows = torch.as_tensor(rows).to(torch.bfloat16)
+    got = layers.combine_top_k(trows, torch.as_tensor(order), torch.as_tensor(gate_idx))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    old = torch.zeros((t, d), dtype=torch.bfloat16).index_add_(0, torch.as_tensor(st), trows)
+    assert not torch.equal(got, old)
+    rev = torch.zeros((t, d), dtype=torch.bfloat16).index_add_(
+        0, torch.as_tensor(st[::-1].copy()), trows.flip(0))
+    assert not torch.equal(got, rev)
+
+
+def test_expert_counts_equal_bincount():
+    idx = torch.as_tensor(np.random.default_rng(6).integers(0, 40, size=3000))
+    for dtype in (torch.float32, torch.long):
+        got = layers.expert_counts(idx, 48, dtype)
+        assert got.dtype == dtype
+        assert torch.equal(got.long(), torch.bincount(idx, minlength=48))
 
 
 # --------------------------------------------------------------------- #
