@@ -22,6 +22,12 @@ pass (Boyd §3.3.1), ``ADMMTrace.iters_run`` counts its live iterations and
 through kernel K3 (γ = 0 and lo = 0 only: the SVM instance).
 ``admm_boxqp_adaptive`` balances the residuals by rescaling β between
 chunks of iterations (``adaptive_rho_outer``, Boyd §3.4.1).
+
+Under a mesh (``mesh``, ``repro_torch.dist.api``) every (d, k) block is the
+rank's rows, the solver a node-split one, and each reduction over the
+sample axis is a local partial plus one all-reduce: ``eq_dot`` once per
+iteration, and the residual norms (and the stopping test's scales) as the
+square roots of summed squares, all in one more.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.dist import api as dist_api
 from repro_torch.kernels.admm_update import ops as admm_ops
 
 SolverMat = Callable[[torch.Tensor], torch.Tensor]   # B (d, k) -> K_β⁻¹ B
@@ -132,12 +139,14 @@ def admm_boxqp(
     mu0: torch.Tensor | None = None,
     use_fused_update: bool = False,
     done0: torch.Tensor | None = None,
+    mesh=None,
 ) -> tuple[ADMMState, ADMMTrace]:
     """Run k box-QP ADMM problems that share one (K̃ + βI) factorization.
 
     ``solver_mat`` applies (K̃ + βI)⁻¹ to a (d, k) block (one O(d r) sweep
     per iteration).  State is (d, k), traces (max_it, k).  ``z0``/``mu0``
     warm-start; ``done0`` (k,) seeds the freeze mask of a ``tol`` run.
+    ``mesh``: the blocks are this rank's rows (module docstring).
     """
     d, k = task.sign.shape
     dtype, dev = task.sign.dtype, task.sign.device
@@ -150,18 +159,18 @@ def admm_boxqp(
     if has_eq:
         if task.eq_sa.dim() == 1:                    # shared: ONE single-RHS solve
             v = solver_mat(task.eq_sa[:, None])[:, 0]
-            w1 = task.eq_sa @ v
+            w1 = dist_api.all_reduce_sum(task.eq_sa @ v, mesh)
             sv = s_cols * v[:, None]
 
             def eq_dot(sq):
-                return v @ sq
+                return dist_api.all_reduce_sum(v @ sq, mesh)
         else:                                        # per problem: one k-RHS solve
             v = solver_mat(task.eq_sa)
-            w1 = (task.eq_sa * v).sum(0)
+            w1 = dist_api.all_reduce_sum((task.eq_sa * v).sum(0), mesh)
             sv = s_cols * v
 
             def eq_dot(sq):
-                return (v * sq).sum(0)
+                return dist_api.all_reduce_sum((v * sq).sum(0), mesh)
         eq_b = (torch.zeros((k,), dtype=dtype, device=dev) if task.eq_b is None
                 else task.eq_b)
 
@@ -215,13 +224,14 @@ def admm_boxqp(
             z_new = torch.where(keep, z, z_new)
             mu_new = torch.where(keep, mu, mu_new)
             iters = iters + (~done).to(torch.int32)
-        primal = torch.linalg.vector_norm(x_new - z_new, dim=0)
-        dual = beta * torch.linalg.vector_norm(z_new - z, dim=0)
+        cols = [x_new - z_new, z_new - z] + ([x_new, z_new, mu_new] if tol is not None
+                                             else [])
+        norms = _col_norms(cols, mesh)
+        primal, dual = norms[0], beta * norms[1]
         if tol is not None:
             # Relative stopping test (Boyd §3.3.1).
-            p_scale = 1.0 + torch.maximum(torch.linalg.vector_norm(x_new, dim=0),
-                                          torch.linalg.vector_norm(z_new, dim=0))
-            d_scale = 1.0 + torch.linalg.vector_norm(mu_new, dim=0)
+            p_scale = 1.0 + torch.maximum(norms[2], norms[3])
+            d_scale = 1.0 + norms[4]
             done = done | ((primal < tol * p_scale) & (dual < tol * d_scale))
         x, z, mu = x_new, z_new, mu_new
         primals.append(primal)
@@ -231,6 +241,15 @@ def admm_boxqp(
         done = None
     trace = ADMMTrace(torch.stack(primals), torch.stack(duals), iters, done)
     return ADMMState(x, z, mu), trace
+
+
+def _col_norms(blocks: list[torch.Tensor], mesh) -> list[torch.Tensor]:
+    """Column 2-norms of each (d, k) block; under a mesh the square root of
+    the ranks' summed squares, all blocks in one all-reduce."""
+    if mesh is None:
+        return [torch.linalg.vector_norm(b, dim=0) for b in blocks]
+    sq = dist_api.all_reduce_sum(torch.stack([(b * b).sum(0) for b in blocks]), mesh)
+    return list(torch.sqrt(sq))
 
 
 def adaptive_rho_outer(
@@ -306,17 +325,19 @@ def admm_boxqp_adaptive(
     z0: torch.Tensor | None = None,
     mu0: torch.Tensor | None = None,
     beta_min: float = 0.0,
+    mesh=None,
 ) -> tuple[ADMMState, ADMMTrace, dict]:
     """``admm_boxqp`` under the residual-balancing outer loop.
 
     ``solver_for(beta)`` returns a (d, k)-block solver of (K̃ + βI), cached
     per visited β by the caller (the engine's ``_fac_for``).  With
     ``params.adapt_rho`` False this is one plain ``admm_boxqp`` run (plus
-    the info dict).  ``beta_min``: as in ``adaptive_rho_outer``.
+    the info dict).  ``beta_min``: as in ``adaptive_rho_outer``; ``mesh``:
+    as in ``admm_boxqp`` (the residuals it balances are already global).
     """
     def run_chunk(beta, n_it, z, mu, done):
         return admm_boxqp(solver_for(beta), task, beta, max_it=n_it, tol=params.tol,
-                          z0=z, mu0=mu, done0=done)
+                          z0=z, mu0=mu, done0=done, mesh=mesh)
 
     return adaptive_rho_outer(run_chunk, beta0, params, z0=z0, mu0=mu0, beta_min=beta_min)
 
@@ -331,6 +352,7 @@ def admm_svm(
     mu0: torch.Tensor | None = None,
     use_fused_update: bool = False,
     tol: float | None = None,
+    mesh=None,
 ) -> tuple[ADMMState, ADMMTrace]:
     """Single-problem (k = 1) view of ``admm_svm_batched``; ``solver``
     applies (K̃ + βI)⁻¹ to a (d,) vector."""
@@ -343,6 +365,7 @@ def admm_svm(
         mu0=None if mu0 is None else mu0[:, None],
         use_fused_update=use_fused_update,
         tol=tol,
+        mesh=mesh,
     )
     return (ADMMState(*(a[:, 0] for a in state)),
             ADMMTrace(trace.primal_res[:, 0], trace.dual_res[:, 0],
@@ -360,12 +383,13 @@ def admm_svm_batched(
     mu0: torch.Tensor | None = None,
     use_fused_update: bool = False,
     tol: float | None = None,
+    mesh=None,
 ) -> tuple[ADMMState, ADMMTrace]:
     """Run k SVM dual ADMM problems that share one (K̃ + βI) factorization;
     ``ys`` is (k, d), one ±1 label vector per problem."""
     return admm_boxqp(solver_mat, svm_task(ys, c_upper), beta, max_it=max_it,
                       tol=tol, z0=z0, mu0=mu0,
-                      use_fused_update=use_fused_update)
+                      use_fused_update=use_fused_update, mesh=mesh)
 
 
 def paper_beta(d: int) -> float:

@@ -15,7 +15,8 @@ Counterpart of ``repro.core.compression`` (the resident, single-device
     detected from the pivoted-QR diagonal decay; the arrays keep the rank
     cap's shape and the truncated slots are exact zeros.
 
-``compress_streamed`` is the out-of-core build (``repro``'s counterpart of
+``compress_sharded`` is the mesh-parallel build (each rank builds the
+nodes it owns, ``repro_torch.dist.api``), and ``compress_streamed`` is the out-of-core build (``repro``'s counterpart of
 the same name): the data stay on the host, the device sees one batch of
 nodes at a time, and each completed level can be checkpointed and resumed.
 """
@@ -177,7 +178,8 @@ def _host_proxy_indices(
 
 
 def _host_leaf_near(
-    tree: ClusterTree, params: CompressionParams, x_perm: np.ndarray | None = None
+    tree: ClusterTree, params: CompressionParams, x_perm: np.ndarray | None = None,
+    mesh=None,
 ) -> np.ndarray:
     """(n_leaf, n_near) NEAR-proxy indices per leaf.
 
@@ -186,23 +188,34 @@ def _host_leaf_near(
     *other* clusters.  With data available we find them with a KD-tree
     (scipy) — the exact analogue of STRUMPACK's ANN preprocessing; without
     data we fall back to sampling the sibling leaf (tree-adjacent ≈ near).
+
+    With ``mesh`` the rows are those of the rank's own leaves
+    (``dist.api.owned_range``), equal to the same rows of the whole array:
+    the KD-tree spans every point but is queried for the rank's points
+    only, and the few deficit rows (candidate pool below n_near) of all
+    ranks are gathered, so that every rank replays the one seeded top-up
+    draw in leaf order.
     """
+    from repro_torch.dist import api as dist_api
+
     rng = np.random.default_rng(params.seed + 1)
     m, K = tree.leaf_size, tree.levels
     n_leaf = 2 ** K
-    out = np.empty((n_leaf, params.n_near), dtype=np.int32)
+    lo, hi = dist_api.owned_range(mesh, n_leaf)
+    out = np.empty((hi - lo, params.n_near), dtype=np.int32)
     if x_perm is not None and n_leaf > 1:
         from scipy.spatial import cKDTree
 
         x_f32 = np.asarray(x_perm, np.float32)
         kdt = cKDTree(x_f32)
         k_query = min(max(2 * params.n_near // m + 4, 4), tree.n)
-        _, nbr = kdt.query(x_f32, k=k_query, workers=-1)   # (n, k) incl. self; all cores
+        x_own = x_f32[lo * m:hi * m]
+        _, nbr = kdt.query(x_own, k=k_query, workers=-1)   # (n, k) incl. self; all cores
         leaf_of = np.arange(tree.n) // m
         # Vectorized over all leaves: each leaf's candidate pool is its
         # points' neighbour lists, flattened.
-        cand = nbr.reshape(n_leaf, m * k_query).astype(np.int64)
-        own = leaf_of[cand] == np.arange(n_leaf)[:, None]   # in-leaf -> drop
+        cand = nbr.reshape(hi - lo, m * k_query).astype(np.int64)
+        own = leaf_of[cand] == np.arange(lo, hi)[:, None]   # in-leaf -> drop
         # Duplicate suppression: sort ids per row, mark repeats, scatter the
         # mask back to original positions.
         order = np.argsort(cand, axis=1, kind="stable")
@@ -213,7 +226,7 @@ def _host_leaf_near(
         np.put_along_axis(dup, order, dup_sorted, axis=1)
         invalid = own | dup
         # Rank candidates by distance to the leaf centroid; invalid -> +inf.
-        centroid = x_f32.reshape(n_leaf, m, -1).mean(axis=1)
+        centroid = x_own.reshape(hi - lo, m, -1).mean(axis=1)
         dist = np.linalg.norm(
             x_f32[cand] - centroid[:, None, :], axis=2)
         dist[invalid] = np.inf
@@ -223,23 +236,49 @@ def _host_leaf_near(
         # only): top up from the sibling leaf, excluding candidates already
         # placed; repeats only once the whole sibling leaf is exhausted.
         counts = (~invalid).sum(axis=1)
-        for i in np.nonzero(counts < params.n_near)[0]:
-            c = int(counts[i])
+        short_rows = np.nonzero(counts < params.n_near)[0]
+        rows = np.concatenate([(short_rows + lo)[:, None], counts[short_rows, None],
+                               out[short_rows]], axis=1).astype(np.int64)
+        if mesh is not None:
+            rows = _gather_host_rows(rows, mesh)
+        for i, c, *placed in rows.tolist():
             short = params.n_near - c
-            sib = int(i) ^ 1
+            sib = i ^ 1
             pool = np.setdiff1d(
-                np.arange(m, dtype=np.int64) + sib * m, out[i, :c])
+                np.arange(m, dtype=np.int64) + sib * m, placed[:c])
             if len(pool) >= short:
                 fill = rng.choice(pool, size=short, replace=False)
             else:
                 extra = rng.choice(m, size=short - len(pool)) + sib * m
                 fill = np.concatenate([pool, extra])
-            out[i, c:] = fill
+            if lo <= i < hi:
+                out[i - lo, c:] = fill
         return out
     for i in range(n_leaf):
         sib = i ^ 1
-        out[i] = rng.choice(m, size=params.n_near, replace=params.n_near > m) + sib * m
+        row = rng.choice(m, size=params.n_near, replace=params.n_near > m) + sib * m
+        if lo <= i < hi:
+            out[i - lo] = row
     return out
+
+
+def _gather_host_rows(rows: np.ndarray, mesh) -> np.ndarray:
+    """Every rank's (n_r, w) int64 host rows, stacked in rank order (the
+    counts differ by rank: one sum of the counts, one gather of the rows
+    padded to the largest)."""
+    from repro_torch.dist import api as dist_api
+
+    counts = np.zeros(mesh.size, np.int64)
+    counts[mesh.rank] = rows.shape[0]
+    counts = dist_api.all_reduce_sum(torch.as_tensor(counts), mesh).numpy()
+    width, most = rows.shape[1], int(counts.max())
+    if most == 0:
+        return rows
+    padded = np.zeros((most, width), np.int64)
+    padded[:rows.shape[0]] = rows
+    every = dist_api.all_gather_nodes(torch.as_tensor(padded), mesh).numpy()
+    return np.concatenate([every[r * most:r * most + counts[r]]
+                           for r in range(mesh.size)])
 
 
 def compress(
@@ -329,6 +368,125 @@ def compress(
         leaf_size=m,
         leaf_ranks=leaf_ranks if adaptive else None,
         level_ranks=tuple(level_ranks) if adaptive else (),
+    )
+
+
+def compress_sharded(
+    x_perm: np.ndarray | torch.Tensor,
+    tree: ClusterTree,
+    spec: KernelSpec,
+    params: CompressionParams = CompressionParams(),
+    mesh=None,
+    device: str | torch.device = "cuda",
+    cut: int | None = None,
+) -> HSSMatrix:
+    """Mesh-parallel HSS build (the reference's ``compress_sharded``): each
+    rank builds the nodes it owns.
+
+    Every rank holds the whole ``x_perm`` on the host (the proxy sets need
+    it) and moves only its own leaves' points, and the proxy points of its
+    nodes, to ``device``:
+
+      * host preprocessing yields the reference's exact index sets: every
+        rank makes the whole seeded FAR draw and takes its rows, and the
+        KD-tree is queried for the rank's own leaves (``_host_leaf_near``);
+      * the leaf stage (K1 or K4 for D, K2 for the IDs) runs on the rank's
+        n_leaf/P leaves;
+      * each level carries only the skeleton POINTS and their global ids
+        upward, and stays on the rank's own nodes while ``dist.api``'s rule
+        keeps it split (``cut``, ``shard_levels`` by default: a smaller cut
+        gives the same numbers);
+      * at the cut one gather of the skeleton points, ids and ranks, after
+        which every rank computes the small upper tree.
+
+    The result holds the rank's part (``HSSMatrix.mesh``/``cut``; ``x`` is
+    its leaves' points).  Without a mesh, with no tree levels, or when P
+    does not divide the leaf count, this is ``compress`` (the reference's
+    fallback).  Numerically the same decompositions of the same sampled
+    blocks as ``compress``.
+    """
+    from repro_torch.dist import api as dist_api
+
+    n, m, K = tree.n, tree.leaf_size, tree.levels
+    n_leaf = 2 ** K
+    x_host = x_perm.cpu().numpy() if isinstance(x_perm, torch.Tensor) else x_perm
+    if x_host.shape[0] != n:
+        raise ValueError(f"x has {x_host.shape[0]} rows, tree expects {n}")
+    cut = dist_api.shard_levels(mesh, K) if cut is None else cut
+    if cut == 0:
+        return compress(x_host, tree, spec, params, device=device)
+    dev = torch.device(device)
+    r0 = min(params.rank, m)
+    adaptive, rtol = params.rtol is not None, params.rtol
+
+    lo, hi = dist_api.owned_range(mesh, n_leaf)
+    far_idx = _host_proxy_indices(tree, params)
+    leaf_near = _host_leaf_near(tree, params, x_host, mesh=mesh)
+    prox0 = np.concatenate([leaf_near, far_idx[0][lo:hi]], axis=1)
+    x_own = torch.as_tensor(x_host[lo * m:hi * m], device=dev)
+    x_leaves = x_own.reshape(hi - lo, m, -1)
+    f = x_leaves.shape[-1]
+
+    def take(pts, piv):                       # (B, c, f) points at (B, k) slots
+        return torch.gather(pts, 1, piv.long()[:, :, None].expand(-1, -1, f))
+
+    # ---------------- leaves: the rank's own ---------------- #
+    d_leaf = _batched_kernel_block(spec, x_leaves, x_leaves)
+    piv0, u_leaf, leaf_ranks = _batched_row_id(
+        spec, x_leaves, torch.as_tensor(x_host[prox0], device=dev), r0, rtol, adaptive)
+    starts = torch.arange(lo, hi, dtype=torch.int32, device=dev) * m
+    skel_leaf = starts[:, None] + piv0
+    spts, sids, sranks = take(x_leaves, piv0), skel_leaf, leaf_ranks
+
+    # ---------------- internal levels ---------------- #
+    transfers: list[torch.Tensor] = []
+    skels: list[torch.Tensor] = []
+    b_mats: list[torch.Tensor] = []
+    level_ranks: list[torch.Tensor] = []
+    r_prev = r0
+    for k in range(1, K + 1):
+        n_k = 2 ** (K - k)
+        if k == cut:
+            # The one gather: skeleton points, ids and ranks of level k-1
+            # (O(r n_k) each); the upper tree is replicated from here.
+            spts, sids, sranks = (dist_api.all_gather_nodes(a, mesh)
+                                  for a in (spts, sids, sranks))
+        lo_k, hi_k = dist_api.owned_range(mesh, n_k) if k < cut else (0, n_k)
+        cp = spts.reshape(hi_k - lo_k, 2 * r_prev, f)           # candidate points
+        ci = sids.reshape(hi_k - lo_k, 2 * r_prev)
+        cmask = _cand_mask(sranks, r_prev, cp.dtype) if adaptive else None
+        b_k = _batched_kernel_block(spec, cp[:, :r_prev], cp[:, r_prev:])
+        b_mats.append(_mask_b(b_k, cmask, r_prev) if adaptive else b_k)
+        if k == K:
+            break
+        r_k = min(params.rank, 2 * r_prev)
+        # NEAR proxies: the sibling node's candidates (on this rank: a split
+        # level holds an even number of nodes per rank).
+        sib = cp.reshape(-1, 2, 2 * r_prev, f).flip(1).reshape(hi_k - lo_k, 2 * r_prev, f)
+        far = torch.as_tensor(x_host[far_idx[k][lo_k:hi_k]], device=dev)
+        piv_k, t_k, sranks = _batched_row_id(
+            spec, cp, torch.cat([sib, far], dim=1), r_k, rtol, adaptive, cmask=cmask)
+        sids = torch.gather(ci, 1, piv_k.long()).to(torch.int32)
+        spts = take(cp, piv_k)
+        transfers.append(t_k)
+        skels.append(sids)
+        level_ranks.append(sranks)
+        r_prev = r_k
+
+    return HSSMatrix(
+        x=x_own,
+        d_leaf=d_leaf,
+        u_leaf=u_leaf,
+        skel_leaf=skel_leaf,
+        transfers=tuple(transfers),
+        skels=tuple(skels),
+        b_mats=tuple(b_mats),
+        levels=K,
+        leaf_size=m,
+        leaf_ranks=leaf_ranks if adaptive else None,
+        level_ranks=tuple(level_ranks) if adaptive else (),
+        mesh=mesh,
+        cut=cut,
     )
 
 

@@ -25,8 +25,20 @@ task.  ``stream`` takes the out-of-core streamed build in ``prepare``
 balances the residuals by rescaling β, one factorization per visited β (as
 the reference does; ``admm.rho_guard`` adds the port's floor ``rho_floor()``
 against an indefinite K̃);
-``train_multilevel`` warm-starts from a coarse subsample.  A mesh (ROADMAP
-queue 1 item 13) raises NotImplementedError.
+``train_multilevel`` warm-starts from a coarse subsample.
+
+``mesh`` (a ``repro_torch.dist.api.Mesh``, one process per rank) runs every
+stage node-split: each rank is given the whole ``x``/``y`` on the host, as
+the reference's single controller holds them, builds and factorizes the
+nodes it owns (``compression.compress_sharded``, ``factorization``'s split
+schedule), trains on its rows of every (d, P) block with one all-reduce per
+sum over the samples, and its models hold its rows of the support
+(``EngineModel.mesh``): scoring sums the ranks' partial scores with one
+all-reduce (the reference's ``_mesh_scorer``).  Every rank makes every call.
+The effective mesh (``FitReport.mesh_ranks``) falls back to the local path
+for a rank count that is not a power of two, as the reference's does.  The
+streamed build under a mesh is ROADMAP queue 1 item 13 and raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -46,6 +58,7 @@ from repro_torch.core.kernelfn import (
 )
 from repro_torch.core.multiclass import class_index, ovo_problems, ovr_problems
 from repro_torch.core.svm import FitReport, build, compute_bias_batched, prolong_duals, sync
+from repro_torch.dist import api as dist_api
 
 TASKS = ("svm", "svr", "oneclass", "krr", "gp")
 _REGRESSION = ("svr", "krr", "gp")
@@ -68,19 +81,33 @@ class EngineModel:
     task: str = "svm"
     pairs: np.ndarray | None = None     # (P, 2) class indices, ovo only
     beta: float | None = None   # β of the factorization it was trained on
+    # trained under a mesh: x_perm / z_y are this rank's rows of the support
+    mesh: object = None
 
     @property
     def n_classes(self) -> int:
         return int(self.classes.shape[0])
 
+    def gathered(self) -> "EngineModel":
+        """The same model with the whole support on every rank and no mesh
+        (one gather of the rows; itself when there is no mesh)."""
+        if self.mesh is None:
+            return self
+        return dataclasses.replace(
+            self, x_perm=dist_api.all_gather_nodes(self.x_perm, self.mesh),
+            z_y=dist_api.all_gather_nodes(self.z_y, self.mesh), mesh=None)
+
     def decision_function(self, x_test, block: int = DEFAULT_SCORE_BLOCK
                           ) -> torch.Tensor:
         """Scores (n_test, P); single-column models (binary SVM, SVR,
-        one-class, KRR/GP) return the flat (n_test,) column."""
+        one-class, KRR/GP) return the flat (n_test,) column.  Under a mesh
+        each rank scores against its rows of the support and one all-reduce
+        sums the partial scores (every rank passes the same ``x_test``)."""
         x_test = torch.as_tensor(x_test, dtype=torch.float32,
                                  device=self.x_perm.device)
         scores = kernel_matvec_streamed(
             self.spec, x_test, self.x_perm, self.z_y, block=block)
+        scores = dist_api.all_reduce_sum(scores, self.mesh)
         scores = scores + self.biases[None, :]
         if self.binary or self.task != "svm":
             return scores[:, 0]
@@ -133,11 +160,31 @@ class HSSSVMEngine:
     _y_raw: np.ndarray | None = None
     _xp_host: np.ndarray | None = None    # padded + permuted points
     _maskp_host: np.ndarray | None = None  # (d,) real-point mask, tree order
+    # The EFFECTIVE mesh: ``mesh``, or None where the tree cannot split over
+    # it (a rank count that is not a power of two): the local path then.
+    _mesh: object = None
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError("a mesh is ROADMAP queue 1 item 13")
+        if self.mesh is not None and self.stream is not None:
+            raise NotImplementedError("the streamed build under a mesh is ROADMAP "
+                                      "queue 1 item 13")
         self.device = torch.device(self.device)
+
+    def _min_levels(self) -> int:
+        """Enough tree levels that the leaf count divides the rank count
+        (the reference's rule: none for a count that is not a power of two,
+        which then runs the local path)."""
+        p = dist_api.mesh_ndev(self.mesh)
+        if self.mesh is None or p & (p - 1):
+            return 0
+        return p.bit_length() - 1
+
+    def _rows(self, a: np.ndarray, axis: int = 0) -> np.ndarray:
+        """This rank's rows (samples on ``axis``) of a full-length host array."""
+        if self._mesh is None:
+            return a
+        lo, hi = dist_api.owned_range(self._mesh, a.shape[axis])
+        return a[lo:hi] if axis == 0 else a[:, lo:hi]
 
     # ------------------------------------------------------------------ #
     def prepare(self, x: np.ndarray, y: np.ndarray | None = None) -> FitReport:
@@ -167,7 +214,11 @@ class HSSSVMEngine:
             self._binary = False
         d_real = x.shape[0]
         x_pad, y_pad, mask, levels = tree_mod.pad_dataset(
-            x, y.astype(np.float32), self.leaf_size)
+            x, y.astype(np.float32), self.leaf_size, min_levels=self._min_levels())
+        p = dist_api.mesh_ndev(self.mesh)
+        self._mesh = self.mesh if dist_api.shard_levels(self.mesh, levels) else None
+        if self.mesh is not None and p & (p - 1):
+            self._mesh = None           # the reference's fallback: the local path
         t = tree_mod.build_tree(x_pad, self.leaf_size, levels)
         xp_host = x_pad[t.perm]
         yp, maskp = y_pad[t.perm], mask[t.perm]
@@ -188,9 +239,9 @@ class HSSSVMEngine:
         beta = self.beta if self.beta is not None else admm_mod.paper_beta(d_real)
         self._hss, self._fac, self._report = build(
             xp_host, t, maskp, self.spec, self.comp, beta, self.device, self.store_dtype,
-            stream=self.stream)
-        self._ys = torch.as_tensor(ys, device=self.device)
-        self._pmask = torch.as_tensor(pmasks, device=self.device)
+            stream=self.stream, mesh=self._mesh)
+        self._ys = torch.as_tensor(self._rows(ys, axis=1), device=self.device)
+        self._pmask = torch.as_tensor(self._rows(pmasks, axis=1), device=self.device)
         self._classes, self._pairs = classes, pairs
         self._n_real, self._perm_host = d_real, t.perm
         self._x_raw, self._y_raw = x, y
@@ -260,11 +311,12 @@ class HSSSVMEngine:
             state, trace, rho_info = admm_mod.admm_boxqp_adaptive(
                 lambda b: self._fac_for(b).solve_mat, task, fac.beta, self.admm,
                 z0=z0, mu0=mu0,
-                beta_min=self.rho_floor() if self.admm.rho_guard else 0.0)
+                beta_min=self.rho_floor() if self.admm.rho_guard else 0.0,
+                mesh=self._mesh)
         else:
             state, trace = admm_mod.admm_boxqp(
                 fac.solve_mat, task, fac.beta, self.admm.max_it, tol=self.admm.tol,
-                z0=z0, mu0=mu0)
+                z0=z0, mu0=mu0, mesh=self._mesh)
         sync(self.device)
         t1 = time.perf_counter()
         z = state.z
@@ -287,7 +339,7 @@ class HSSSVMEngine:
             x_perm=self._hss.x, z_y=task.sign * z, biases=biases,
             classes=self._classes, spec=self.spec, c_value=c_value,
             binary=self._binary, strategy=self.strategy, task=self.task,
-            pairs=self._pairs, beta=float(fac.beta))
+            pairs=self._pairs, beta=float(fac.beta), mesh=self._mesh)
         return model, (z, state.mu)
 
     def _build_task(self, ys: torch.Tensor, pmask: torch.Tensor, knob: float
@@ -295,8 +347,9 @@ class HSSSVMEngine:
         """The engine's knob → BoxQPTask rule."""
         if self.task == "svr":
             return tasks_mod.svr_task(ys, self.svr_c * pmask, knob)
-        if self.task == "oneclass":
-            return tasks_mod.one_class_task(pmask, knob)
+        if self.task == "oneclass":     # the box needs the real count of all ranks
+            return tasks_mod.one_class_task(
+                pmask, knob, n_real=dist_api.all_reduce_sum(pmask.sum(1), self._mesh))
         return admm_mod.svm_task(ys, knob * pmask)
 
     def rho_floor(self) -> float:
@@ -330,7 +383,7 @@ class HSSSVMEngine:
         """Factorization of K̃ + βI, cached per visited β (one O(N r²)
         refactorization the first time each β is visited)."""
         fac = self._fac_cache.get(float(beta))
-        if fac is None:
+        if fac is None:      # a node-split K̃ gives a node-split factorization
             fac = factorization.factorize(self._hss, beta, store_dtype=self.store_dtype)
             self._fac_cache[float(beta)] = fac
         return fac
@@ -360,13 +413,15 @@ class HSSSVMEngine:
             x_perm=self._hss.x, z_y=alpha,
             biases=torch.zeros((n_prob,), dtype=torch.float32, device=self.device),
             classes=self._classes, spec=self.spec, c_value=lam, binary=False,
-            strategy=self.strategy, task=self.task, pairs=None, beta=float(fac.beta))
+            strategy=self.strategy, task=self.task, pairs=None, beta=float(fac.beta),
+            mesh=self._mesh)
         return model, (alpha, alpha)
 
     def log_marginal(self, lam: float, n_probes: int = 4, num_iters: int = 20,
                      seed: int = 0, probes: torch.Tensor | None = None) -> float:
         """GP log marginal likelihood estimate at noise λ
-        (``krr.gp_log_marginal``): the ``task="gp"`` (h, λ) grid score."""
+        (``krr.gp_log_marginal``): the ``task="gp"`` (h, λ) grid score.
+        ``probes`` (n_probes, d) are of full length under a mesh too."""
         assert self._fac is not None, "call prepare() first"
         if self.task not in ("krr", "gp"):
             raise ValueError(f"log_marginal needs task='krr'/'gp', got {self.task!r}")
@@ -378,7 +433,9 @@ class HSSSVMEngine:
                        v0: torch.Tensor | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
         """Leading k eigenpairs of the compressed kernel (Lanczos on the
-        O(N r) matvec), in permuted/padded row order — any prepared task."""
+        O(N r) matvec), in permuted/padded row order — any prepared task.
+        Under a mesh the vectors are this rank's rows; ``v0`` is of full
+        length."""
         assert self._hss is not None, "call prepare() first"
         return lanczos_mod.top_eigenpairs(self._hss, k, num_iters=num_iters, v0=v0,
                                           seed=seed)
@@ -389,6 +446,7 @@ class HSSSVMEngine:
         eigenvectors scaled by √eigenvalue, mapped back through the tree
         permutation with pad rows dropped."""
         evals, vecs = self.top_eigenpairs(k, num_iters=num_iters, seed=seed, v0=v0)
+        vecs = dist_api.all_gather_nodes(vecs, self._mesh)     # every rank: all rows
         emb = (vecs * torch.sqrt(torch.clamp(evals, min=0.0))[None, :]).cpu().numpy()
         out = np.zeros((self._n_real, k), np.float32)
         real = self._perm_host < self._n_real
@@ -417,6 +475,7 @@ class HSSSVMEngine:
 
         Returns (model, info) with the coarse size and both iteration
         records.  Needs ``prepare``; the fine factorization is reused.
+        Under a mesh every rank trains the same coarse problem locally.
         """
         assert self._fac is not None, "call prepare() first"
         x, y = self._x_raw, self._y_raw
@@ -445,9 +504,10 @@ class HSSSVMEngine:
         scale = tasks_mod.prolong_scale(
             self.task, int(coarse._maskp_host.sum()), int(self._maskp_host.sum()))
         mask = self._maskp_host[:, None]          # fine pads carry no dual mass
-        warm = tuple(
-            torch.as_tensor((prolong_duals(coarse._xp_host, v.cpu().numpy(), self._xp_host)
-                             * scale * mask).astype(np.float32), device=self.device)
+        warm = tuple(         # prolonged on the host, then this rank's rows
+            torch.as_tensor(self._rows(
+                (prolong_duals(coarse._xp_host, v.cpu().numpy(), self._xp_host)
+                 * scale * mask).astype(np.float32)), device=self.device)
             for v in (z_c, mu_c))
         model, _ = self.train(c_value, warm=warm)
         info = dict(coarse_n=int(idx.shape[0]),

@@ -14,6 +14,14 @@ reduced levels).  The products are ordinary f32 matmuls: the port keeps
 run in full f32 on the card as well.  ``store_dtype="bfloat16"`` stores E
 and G in bf16; the solve widens each factor to f32 as it enters its
 product, so only the storage rounds.
+
+Counterpart of ``factorize_sharded`` and the sharded solve too: on a
+node-split HSS matrix (``hss.mesh`` set) the factors of the levels below the
+cut are computed from the rank's own blocks, ``_assemble_next`` gathers
+D̂ (O(r² n_k)) once at the cut, and the upper levels and the root LU are
+replicated.  ``hss_solve_mat`` runs the same schedule on the rank's rows of
+the right-hand side: one gather of the projected block at the cut going up,
+the rank's slice of the replicated result coming down.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.hss import HSSMatrix
+from repro_torch.dist import api as dist_api
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +46,9 @@ class HSSFactorization:
     levels: int
     leaf_size: int
     beta: float
+    # node-split factorization: the mesh and the first replicated level
+    mesh: object = None
+    cut: int = 0
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         return hss_solve(self, b)
@@ -101,7 +113,8 @@ def factorize(hss: HSSMatrix, beta: float,
     """Factor K̃ + beta*I once; reused for every ADMM iteration and C value.
 
     ``store_dtype="bfloat16"`` stores the E/G factors in bf16 (the solve
-    accumulates in f32); the root LU stays f32.
+    accumulates in f32); the root LU stays f32.  A node-split ``hss`` gives
+    a node-split factorization (module docstring).
     """
     K, m = hss.levels, hss.leaf_size
     d_shift = hss.d_leaf + beta * _eye_like(hss.d_leaf)
@@ -118,12 +131,17 @@ def factorize(hss: HSSMatrix, beta: float,
             levels=0, leaf_size=m, beta=beta,
         )
 
+    mesh, cut = hss.mesh, hss.cut
     masks = hss.rank_masks()
     e_leaf, g_leaf, d_hat = _leaf_factors(
         d_shift, hss.u_leaf, None if masks is None else masks[0])
     e_lvls: list[torch.Tensor] = []
     g_lvls: list[torch.Tensor] = []
-    for k in range(1, K):
+    for k in range(1, K + 1):
+        if mesh is not None and k == cut:        # the first replicated level
+            d_hat = dist_api.all_gather_nodes(d_hat, mesh)
+        if k == K:
+            break
         d_blk = _assemble_next(d_hat, hss.b_mats[k - 1])
         e_k, g_k, d_hat = _level_factors(
             d_blk, hss.transfers[k - 1], None if masks is None else masks[1][k - 1])
@@ -140,8 +158,42 @@ def factorize(hss: HSSMatrix, beta: float,
         e_leaf=e_leaf, g_leaf=g_leaf,
         e_lvls=tuple(e_lvls), g_lvls=tuple(g_lvls),
         root_lu=lu, root_piv=piv,
-        levels=K, leaf_size=m, beta=beta,
+        levels=K, leaf_size=m, beta=beta, mesh=mesh, cut=cut,
     )
+
+
+def factorize_sharded(hss: HSSMatrix, beta: float, mesh,
+                      store_dtype: str | None = None) -> HSSFactorization:
+    """Mesh-parallel ``factorize`` (the reference's ``factorize_sharded``):
+    works on a node-split ``hss`` (``compression.compress_sharded``) or a
+    whole one, which each rank first cuts to its own nodes
+    (``hss.shard``)."""
+    from repro_torch.core.hss import shard
+
+    if hss.mesh is None and mesh is not None:
+        hss = shard(hss, mesh)
+    return factorize(hss, beta, store_dtype=store_dtype)
+
+
+def shard(fac: HSSFactorization, mesh, cut: int | None = None) -> HSSFactorization:
+    """This rank's part of a whole factorization: the nodes it owns below
+    ``cut`` (``dist.api.shard_levels`` by default), the rest and the root
+    whole.  The port's counterpart of placing a factorization with the
+    reference's ``distributed.fac_shardings``."""
+    if fac.mesh is not None:
+        raise ValueError("the factorization is already split over a mesh")
+    cut = dist_api.shard_levels(mesh, fac.levels) if cut is None else cut
+    if cut == 0:
+        return fac
+
+    def own(a, k):
+        return dist_api.local_rows(a, mesh) if k < cut else a
+
+    return dataclasses.replace(
+        fac, e_leaf=own(fac.e_leaf, 0), g_leaf=own(fac.g_leaf, 0),
+        e_lvls=tuple(own(a, k) for k, a in enumerate(fac.e_lvls, 1)),
+        g_lvls=tuple(own(a, k) for k, a in enumerate(fac.g_lvls, 1)),
+        mesh=mesh, cut=cut)
 
 
 def hss_solve(fac: HSSFactorization, b: torch.Tensor) -> torch.Tensor:
@@ -155,19 +207,25 @@ def hss_solve_mat(fac: HSSFactorization, b: torch.Tensor) -> torch.Tensor:
 
     Every product runs in f32: a bf16-stored factor is widened as it enters
     (``.float()`` is a no-op on f32 factors), as the reference's
-    ``preferred_element_type=float32`` contractions promote it.
+    ``preferred_element_type=float32`` contractions promote it.  On a
+    node-split factorization ``b`` and the result are this rank's rows.
     """
     K, m = fac.levels, fac.leaf_size
     c = b.shape[1]
     if K == 0:
         return torch.cholesky_solve(b, fac.root_lu)
+    mesh, cut = fac.mesh, fac.cut
 
     n_leaf = fac.e_leaf.shape[0]
     b0 = b.reshape(n_leaf, m, c)
     # Upward sweep: project the RHS through Eᵀ level by level.
     bs = [b0]
     bt = fac.e_leaf.float().transpose(1, 2) @ b0
-    for k in range(1, K):
+    for k in range(1, K + 1):
+        if mesh is not None and k == cut:        # the one gather going up
+            bt = dist_api.all_gather_nodes(bt, mesh)
+        if k == K:
+            break
         e_k = fac.e_lvls[k - 1].float()
         b_k = bt.reshape(e_k.shape[0], -1, c)                 # (n_k, 2 r_{k-1}, c)
         bs.append(b_k)
@@ -176,8 +234,11 @@ def hss_solve_mat(fac: HSSFactorization, b: torch.Tensor) -> torch.Tensor:
 
     # Downward sweep: x_k = G_k b_k + E_k xi_k.
     xi = x_root.reshape(2, -1, c)                             # level K-1 nodes
-    for k in range(K - 1, 0, -1):
-        x_k = fac.g_lvls[k - 1].float() @ bs[k] + fac.e_lvls[k - 1].float() @ xi
-        xi = x_k.reshape(-1, x_k.shape[1] // 2, c)            # children skeleton
+    for k in range(K, 0, -1):
+        if k < K:
+            x_k = fac.g_lvls[k - 1].float() @ bs[k] + fac.e_lvls[k - 1].float() @ xi
+            xi = x_k.reshape(-1, x_k.shape[1] // 2, c)        # children skeleton
+        if mesh is not None and k == cut:        # back to the rank's own nodes
+            xi = dist_api.local_rows(xi, mesh)
     x0 = fac.g_leaf.float() @ b0 + fac.e_leaf.float() @ xi
     return x0.reshape(-1, c)

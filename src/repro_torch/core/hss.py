@@ -15,12 +15,19 @@ has n_k = 2**(K-k) nodes.  Arrays are stacked over nodes per level, so every
 operation is a batch of small dense products.  An adaptive-rank build
 carries per-node rank vectors; ``shrink_to_fit`` slices each level down to
 its largest observed rank.
+
+Under a mesh (``repro_torch.dist.api``) each rank holds the nodes it owns
+at the levels below ``cut`` and every node above it: ``mesh`` and ``cut``
+record that, ``node_range`` reads it, and ``matmat`` runs its sweeps on the
+rank's own nodes with one gather at the cut.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from repro_torch.dist import api as dist_api
 
 
 def rank_mask(ranks: torch.Tensor, cap: int, dtype=torch.float32) -> torch.Tensor:
@@ -52,10 +59,28 @@ class HSSMatrix:
     # and columns of its dead skeletons; shapes stay at the rank cap.
     leaf_ranks: torch.Tensor | None = None          # (n_leaf,) int32
     level_ranks: tuple[torch.Tensor, ...] = ()      # per k=1..K-1: (n_k,) int32
+    # Node-split build (``compression.compress_sharded``): the mesh, and the
+    # first replicated level (``dist.api.shard_levels``); the arrays of the
+    # levels below it hold this rank's nodes only, ``x`` its leaves' points.
+    mesh: object = None
+    cut: int = 0
 
     @property
     def n(self) -> int:
+        """Rows this rank holds (all of them without a mesh)."""
         return self.d_leaf.shape[0] * self.leaf_size
+
+    @property
+    def n_total(self) -> int:
+        """Rows of the whole matrix."""
+        return self.leaf_size << self.levels
+
+    def node_range(self, k: int) -> tuple[int, int]:
+        """[lo, hi) of the level-k nodes this rank holds."""
+        n_k = 1 << (self.levels - k)
+        if self.mesh is None or k >= self.cut:
+            return 0, n_k
+        return dist_api.owned_range(self.mesh, n_k)
 
     @property
     def n_leaves(self) -> int:
@@ -76,12 +101,14 @@ class HSSMatrix:
         if not self.adaptive:
             return self.ranks
         maxima = torch.stack([r.max() for r in (self.leaf_ranks, *self.level_ranks)])
+        # every rank must shrink to the same widths: the max over all ranks
+        maxima = dist_api.all_reduce_max(maxima, self.mesh)
         return [int(r) for r in maxima.tolist()]
 
     def stored_rank_sum(self) -> int:
         """Σ_levels n_k · (stored rank cap): the paper's O(N r) storage in
         skeleton slots — decreases under ``shrink_to_fit``."""
-        return sum(r * (self.n_leaves >> k) for k, r in enumerate(self.ranks))
+        return sum(r << (self.levels - k) for k, r in enumerate(self.ranks))
 
     def rank_masks(self) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]] | None:
         """(leaf_mask (n_leaf, r0), level_masks[k-1] (n_k, r_k)), 1.0 on live
@@ -108,7 +135,13 @@ class HSSMatrix:
         return self.matmat(v[:, None])[:, 0]
 
     def matmat(self, v: torch.Tensor) -> torch.Tensor:
-        """K̃ @ V for V (N, c) — one telescoping sweep over the RHS block."""
+        """K̃ @ V for V (N, c) — one telescoping sweep over the RHS block.
+
+        Under a mesh ``v`` and the result are this rank's rows: the upward
+        sweep runs on the rank's nodes up to the cut, gathers that level's
+        skeleton coordinates once, runs the upper levels replicated, and the
+        downward sweep keeps the rank's nodes again below the cut.
+        """
         K = self.levels
         n_leaf, m = self.n_leaves, self.leaf_size
         c = v.shape[1]
@@ -116,10 +149,15 @@ class HSSMatrix:
         diag = self.d_leaf @ vl
         if K == 0:
             return diag.reshape(-1, c)
+        mesh, cut = self.mesh, self.cut
 
         # Upward: project into skeleton coordinates at every level.
         vt = [self.u_leaf.transpose(1, 2) @ vl]              # (n_leaf, r0, c)
-        for k in range(1, K):
+        for k in range(1, K + 1):
+            if mesh is not None and k == cut:                 # the one gather
+                vt[k - 1] = dist_api.all_gather_nodes(vt[k - 1], mesh)
+            if k == K:
+                break
             t = self.transfers[k - 1]                         # (n_k, 2 r_{k-1}, r_k)
             prev = vt[-1].reshape(t.shape[0], t.shape[1], c)  # pair children
             vt.append(t.transpose(1, 2) @ prev)
@@ -135,12 +173,16 @@ class HSSMatrix:
                 down = self.transfers[k - 1] @ w
                 coup = coup + down.reshape(coup.shape)
             w = coup.reshape(-1, coup.shape[-2], c)           # (n_{k-1}, r, c)
+            if mesh is not None and k == cut:                 # back to own nodes
+                w = dist_api.local_rows(w, mesh)
 
         out = diag + self.u_leaf @ w
         return out.reshape(-1, c)
 
     def todense(self) -> torch.Tensor:
-        """Dense reconstruction (tests and small problems only)."""
+        """Dense reconstruction (tests and small problems only; no mesh)."""
+        if self.mesh is not None:
+            raise ValueError("todense needs the whole matrix on one rank")
         K = self.levels
         n_leaf, m = self.n_leaves, self.leaf_size
         out = torch.zeros((self.n, self.n), dtype=self.d_leaf.dtype,
@@ -165,12 +207,40 @@ class HSSMatrix:
 
     def memory_bytes(self) -> int:
         """Storage of the representation (the paper's 'Memory [MB]' column),
-        rank vectors included."""
+        rank vectors included; under a mesh, this rank's."""
         arrays = (self.d_leaf, self.u_leaf, self.skel_leaf,
                   *self.transfers, *self.skels, *self.b_mats)
         if self.adaptive:
             arrays += (self.leaf_ranks, *self.level_ranks)
         return sum(a.numel() * a.element_size() for a in arrays)
+
+
+def shard(hss: HSSMatrix, mesh, cut: int | None = None) -> HSSMatrix:
+    """This rank's part of a whole HSS matrix: the nodes it owns at the
+    levels below ``cut`` (``dist.api.shard_levels`` by default), every node
+    above.  A node-split build (``compression.compress_sharded``) returns
+    exactly this."""
+    K = hss.levels
+    if hss.mesh is not None:
+        raise ValueError("the matrix is already split over a mesh")
+    cut = dist_api.shard_levels(mesh, K) if cut is None else cut
+    if cut == 0:
+        return hss
+
+    def own(a, k):
+        return dist_api.local_rows(a, mesh) if k < cut else a
+
+    lo, hi = dist_api.owned_range(mesh, hss.n_leaves)
+    return dataclasses.replace(
+        hss, x=hss.x[lo * hss.leaf_size:hi * hss.leaf_size],
+        d_leaf=own(hss.d_leaf, 0), u_leaf=own(hss.u_leaf, 0),
+        skel_leaf=own(hss.skel_leaf, 0),
+        transfers=tuple(own(t, k) for k, t in enumerate(hss.transfers, 1)),
+        skels=tuple(own(t, k) for k, t in enumerate(hss.skels, 1)),
+        b_mats=tuple(own(b, k) for k, b in enumerate(hss.b_mats, 1)),
+        leaf_ranks=None if hss.leaf_ranks is None else own(hss.leaf_ranks, 0),
+        level_ranks=tuple(own(r, k) for k, r in enumerate(hss.level_ranks, 1)),
+        mesh=mesh, cut=cut)
 
 
 def shrink_to_fit(hss: HSSMatrix, multiple: int = 1) -> HSSMatrix:
@@ -179,7 +249,9 @@ def shrink_to_fit(hss: HSSMatrix, multiple: int = 1) -> HSSMatrix:
     Exact, not approximate: every sliced-away slot is structurally zero
     (dead u/transfer columns, dead b_mats rows and columns).  ``multiple``
     rounds each new cap up.  The slices are copied, so the full-cap arrays
-    can be freed.  Fixed-rank builds come back unchanged.
+    can be freed.  Fixed-rank builds come back unchanged.  Under a mesh the
+    observed ranks are the max over all ranks, so every rank cuts the same
+    widths.
     """
     if not hss.adaptive:
         return hss
@@ -219,16 +291,20 @@ def inert_pads(hss: HSSMatrix, real: torch.Tensor) -> HSSMatrix:
     fails; the reference's returns NaN).  Zeroes every pad-pad entry of the
     leaf blocks D and the couplings B, then puts 1 on the pads' diagonal;
     with few pads (no cancellation) it changes nothing.  ``real`` is the
-    (N,) real-point mask in tree order.
+    (N,) real-point mask in tree order, all N rows under a mesh too.
     """
     pad = ~real.to(torch.bool)
-    pl = pad.reshape(hss.n_leaves, hss.leaf_size)
+    lo, hi = hss.node_range(0)
+    pl = pad[lo * hss.leaf_size:hi * hss.leaf_size].reshape(hss.n_leaves, hss.leaf_size)
     d_leaf = (hss.d_leaf.masked_fill(pl[:, :, None] & pl[:, None, :], 0.0)
               + torch.diag_embed(pl.to(hss.d_leaf.dtype)))
     skels = (hss.skel_leaf, *hss.skels)       # level k's skeletons, k = 0..K-1
     b_mats = []
     for k, b in enumerate(hss.b_mats):        # the couplings of level k's sibling pairs
-        sp = pad[skels[k].long()].reshape(b.shape[0], 2, -1)
+        s = skels[k]
+        if hss.mesh is not None and k + 1 == hss.cut:    # B replicated, skeletons split
+            s = dist_api.all_gather_nodes(s, hss.mesh)
+        sp = pad[s.long()].reshape(b.shape[0], 2, -1)
         b_mats.append(b.masked_fill(sp[:, 0, :, None] & sp[:, 1, None, :], 0.0))
     return dataclasses.replace(hss, d_leaf=d_leaf, b_mats=tuple(b_mats))
 

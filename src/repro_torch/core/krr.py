@@ -11,7 +11,10 @@ Counterpart of ``repro.core.krr``:
 λ rides the factorization's β shift slot (``HSSSVMEngine._fac_for`` caches
 one factorization per visited λ), and the model scores through
 ``kernel_matvec_streamed`` like every other task.  The Hutchinson probes are
-an argument; without them a seeded ``torch.Generator`` draws them.
+an argument; without them a seeded ``torch.Generator`` draws them.  On a
+node-split HSS matrix ``y``, ``mask`` and the solves are the rank's rows,
+the probes stay of full length (each rank takes its rows), and every sum
+over the samples is a local partial plus one all-reduce.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.lanczos import lanczos, tridiag_eigh
+from repro_torch.dist import api as dist_api
 from repro_torch.core.tasks import svr_score as krr_score   # negated RMSE
 
 
@@ -48,11 +52,12 @@ def gp_log_marginal(hss, fac, y: torch.Tensor, mask: torch.Tensor | None = None,
     (1 real / 0 pad) removes the pad block's n_pad · log(1 + λ) and counts
     only real points in the 2π term.
     """
+    mesh = hss.mesh
     y = torch.as_tensor(y, dtype=torch.float32).reshape(-1)
-    n = y.shape[0]
+    n = hss.n_total
     lam = float(fac.beta)
     alpha = fac.solve_mat(y[:, None])[:, 0]
-    fit = -0.5 * float(y @ alpha)
+    fit = -0.5 * float(dist_api.all_reduce_sum(y @ alpha, mesh))
 
     def matvec(v):
         return hss.matvec(v) + lam * v
@@ -61,7 +66,8 @@ def gp_log_marginal(hss, fac, y: torch.Tensor, mask: torch.Tensor | None = None,
               else torch.as_tensor(probes, device=y.device))
     logdet = 0.0
     for z in probes:
-        alphas, betas, _ = lanczos(matvec, z, num_iters)
+        alphas, betas, _ = lanczos(matvec, dist_api.local_rows(z, mesh), num_iters,
+                                   mesh=mesh)
         theta, u = tridiag_eigh(alphas, betas[:-1])
         w = u[0, :] ** 2                     # Gauss weights: (e₁ᵀuᵢ)²
         quad = float(w @ torch.log(torch.clamp(theta, min=1e-12)))
@@ -70,7 +76,7 @@ def gp_log_marginal(hss, fac, y: torch.Tensor, mask: torch.Tensor | None = None,
 
     n_eff = n
     if mask is not None:
-        n_real = int(float(torch.as_tensor(mask).sum()))
+        n_real = int(float(dist_api.all_reduce_sum(torch.as_tensor(mask).sum(), mesh)))
         logdet -= (n - n_real) * math.log1p(lam)
         n_eff = n_real
     return fit - 0.5 * logdet - 0.5 * n_eff * math.log(2.0 * math.pi)

@@ -11,6 +11,10 @@ Padded datasets (``tree.pad_dataset``): the pad block of K̃ is ≈ I, so pads
 contribute a cluster of eigenvalues ≈ 1; keep k below the number of data
 eigenvalues above 1, or read the embedding through
 ``HSSSVMEngine.spectral_embed``, which drops pad rows.
+
+On a node-split HSS matrix (``hss.mesh``) the basis holds the rank's rows
+and each dot product and norm is a local partial plus one all-reduce;
+``v0`` stays an argument of full length, and each rank takes its rows.
 """
 from __future__ import annotations
 
@@ -18,38 +22,52 @@ from typing import Callable
 
 import torch
 
+from repro_torch.dist import api as dist_api
+
 # Below this residual norm the Krylov space is exhausted (lucky breakdown):
 # the next basis vector is zeroed instead of amplifying float noise.
 _BREAKDOWN = 1e-30
 
 
 def lanczos(matvec: Callable[[torch.Tensor], torch.Tensor], v0: torch.Tensor,
-            num_iters: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+            num_iters: int, mesh=None
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``num_iters`` Lanczos steps with FULL reorthogonalization.
 
     Returns ``(alphas (m,), betas (m,), basis (m+1, n))`` with the symmetric
     tridiagonal T = diag(alphas) + offdiag(betas[:m-1]); ``betas[m-1]`` is
     the final residual norm.  All in f32; each step runs a double
     Gram-Schmidt against the whole stored basis (rows not yet written are
-    zero and contribute nothing).
+    zero and contribute nothing).  ``mesh``: ``v0``, ``matvec`` and the
+    basis are the rank's rows, the inner products summed over ranks.
     """
+    def psum(t):
+        return dist_api.all_reduce_sum(t, mesh)
+
     n = v0.shape[0]
     v0 = v0.float()
     basis = torch.zeros((num_iters + 1, n), dtype=torch.float32, device=v0.device)
-    basis[0] = v0 / torch.linalg.vector_norm(v0)
+    basis[0] = v0 / _norm(v0, mesh)
     alphas = torch.zeros(num_iters, dtype=torch.float32, device=v0.device)
     betas = torch.zeros(num_iters, dtype=torch.float32, device=v0.device)
     for i in range(num_iters):
         v = basis[i]
         w = matvec(v).float()
-        alphas[i] = v @ w
+        alphas[i] = psum(v @ w)
         for _ in range(2):            # double Gram-Schmidt vs the full basis
-            w = w - basis.T @ (basis @ w)
-        b = torch.linalg.vector_norm(w)
+            w = w - basis.T @ psum(basis @ w)
+        b = _norm(w, mesh)
         basis[i + 1] = torch.where(b > _BREAKDOWN, w / torch.clamp(b, min=_BREAKDOWN),
                                    torch.zeros_like(w))
         betas[i] = b
     return alphas, betas, basis
+
+
+def _norm(v: torch.Tensor, mesh) -> torch.Tensor:
+    """2-norm of a vector; under a mesh of the ranks' rows together."""
+    if mesh is None:
+        return torch.linalg.vector_norm(v)
+    return torch.sqrt(dist_api.all_reduce_sum(v @ v, mesh))
 
 
 def tridiag_eigh(alphas: torch.Tensor, offdiag: torch.Tensor
@@ -78,15 +96,17 @@ def top_eigenpairs(hss, k: int, num_iters: int | None = None,
     Returns ``(eigenvalues (k,) descending, vectors (n, k))`` in the
     permuted/padded row order of ``hss.x``.  ``v0`` (n,) starts the Krylov
     space (moved to ``hss.x``'s device); without it ``start_vector(n,
-    seed=seed)`` does.
+    seed=seed)`` does.  On a node-split ``hss`` the vectors are the rank's
+    rows (``v0`` and the drawn start stay of full length).
     """
-    n = hss.n
+    n = hss.n_total
     m = num_iters if num_iters is not None else default_iters(n, k)
     if not 0 < k <= m:
         raise ValueError(f"need 0 < k <= num_iters, got k={k}, m={m}")
     v0 = (start_vector(n, hss.x.device, seed) if v0 is None
           else torch.as_tensor(v0, device=hss.x.device))
-    alphas, betas, basis = lanczos(hss.matvec, v0, m)
+    alphas, betas, basis = lanczos(hss.matvec, dist_api.local_rows(v0, hss.mesh), m,
+                                   mesh=hss.mesh)
     evals, evecs = tridiag_eigh(alphas, betas[:-1])
     top = torch.argsort(evals, descending=True)[:k]
     return evals[top], basis[:m].T @ evecs[:, top]
@@ -100,14 +120,15 @@ def lowest_eigenvalue(hss) -> tuple[float, float]:
     the extreme eigenvalue (Lanczos finds the ends of the spectrum first),
     λ_min ∈ [θ − ρ, θ].  A compressed K̃ of a positive-definite kernel can
     be indefinite; this reads by how much."""
-    n = hss.n
+    n, mesh = hss.n_total, hss.mesh
     m = min(n, 120)
-    alphas, betas, basis = lanczos(hss.matvec, start_vector(n, hss.x.device), m)
+    alphas, betas, basis = lanczos(
+        hss.matvec, dist_api.local_rows(start_vector(n, hss.x.device), mesh), m, mesh=mesh)
     evals, evecs = tridiag_eigh(alphas, betas[:-1])
     v = basis[:m].T @ evecs[:, 0]
-    v = v / torch.linalg.vector_norm(v)
+    v = v / _norm(v, mesh)
     theta = float(evals[0])
-    return theta, float(torch.linalg.vector_norm(hss.matvec(v).float() - theta * v))
+    return theta, float(_norm(hss.matvec(v).float() - theta * v, mesh))
 
 
 def spectral_embed(hss, k: int, num_iters: int | None = None,

@@ -25,6 +25,7 @@ from repro_torch.core.hss import HSSMatrix, inert_pads, shrink_report
 from repro_torch.core.kernelfn import (
     DEFAULT_SCORE_BLOCK, KernelSpec, kernel_matvec_streamed,
 )
+from repro_torch.dist import api as dist_api
 
 
 def sync(device: torch.device) -> None:
@@ -83,6 +84,10 @@ class FitReport:
     # adaptive ρ, the last train(): the final β and the rescale count
     rho_final: float | None = None
     rho_rescales: int | None = None
+    # the ranks the build was split over: 1 on the local path, which a mesh
+    # falls back to where the tree cannot split over it (port only; under a
+    # mesh memory_mb is this rank's share)
+    mesh_ranks: int = 1
 
 
 def compute_bias_batched(hss: HSSMatrix, ys: torch.Tensor, z: torch.Tensor,
@@ -93,17 +98,19 @@ def compute_bias_batched(hss: HSSMatrix, ys: torch.Tensor, z: torch.Tensor,
     b_p = (z_yᵀ K̃ ē − Σ_{j∈M_p} y_j) / |M_p| where M_p = margin support
     vectors {j : 0 < z_jp < C_jp} of problem p; the average functional
     margin over all bounded SVs when M_p is empty.  ``ys``/``z``/``c_mat``/
-    ``masks`` are (d, P) column blocks; returns (P,).
+    ``masks`` are (d, P) column blocks; returns (P,).  On a node-split
+    ``hss`` the blocks are the rank's rows, and the column sums are local
+    partials summed by one all-reduce.
     """
     on_margin = ((z > margin_tol) & (z < c_mat - margin_tol)
                  & (masks > 0)).to(z.dtype)
-    n_m = on_margin.sum(0)                                 # (P,)
     kz = hss.matmat(ys * z)                 # K̃ (Y z) — one O(N r) sweep
-    num = (on_margin * kz).sum(0) - (on_margin * ys).sum(0)
-    b_margin = -num / torch.clamp(n_m, min=1.0)
     sv = ((z > margin_tol) & (masks > 0)).to(z.dtype)
-    n_sv = torch.clamp(sv.sum(0), min=1.0)
-    b_all = -((sv * kz).sum(0) - (sv * ys).sum(0)) / n_sv
+    sums = torch.stack([on_margin.sum(0), (on_margin * kz).sum(0), (on_margin * ys).sum(0),
+                        sv.sum(0), (sv * kz).sum(0), (sv * ys).sum(0)])
+    n_m, mk, my, n_sv, sk, sy = dist_api.all_reduce_sum(sums, hss.mesh)
+    b_margin = -(mk - my) / torch.clamp(n_m, min=1.0)
+    b_all = -(sk - sy) / torch.clamp(n_sv, min=1.0)
     return torch.where(n_m > 0, b_margin, b_all)
 
 
@@ -118,14 +125,16 @@ def compute_bias(hss: HSSMatrix, y: torch.Tensor, z: torch.Tensor, c_value: floa
 def build(x_perm: np.ndarray, tree: tree_mod.ClusterTree, real: np.ndarray,
           spec: KernelSpec, comp: compression.CompressionParams, beta: float,
           device: torch.device, store_dtype: str | None = None,
-          stream: compression.StreamParams | None = None
+          stream: compression.StreamParams | None = None, mesh=None
           ) -> tuple[HSSMatrix, factorization.HSSFactorization, FitReport]:
     """Compress ONCE and factorize ONCE (Alg. 3 lines 1–6), timed on the host
     clock around synchronised device work.  ``stream`` takes the streamed
     build.  An adaptive build is shrunk to its observed ranks before
     factorizing, so the factorization and every solve run at the detected
     ranks, and the pad block is made exactly the identity
-    (``hss.inert_pads``; ``real`` is the tree-order mask)."""
+    (``hss.inert_pads``; ``real`` is the tree-order mask).  ``mesh`` takes
+    the node-split build (``compression.compress_sharded``), which falls
+    back to the local one where the tree does not split over it."""
     sync(device)
     t0 = time.perf_counter()
     sstats = None
@@ -133,6 +142,8 @@ def build(x_perm: np.ndarray, tree: tree_mod.ClusterTree, real: np.ndarray,
         hss, sstats = compression.compress_streamed(x_perm, tree, spec, comp, stream,
                                                     device=device)
         hss = hss.to(device)       # a host-assembled build factorizes on the device
+    elif mesh is not None:
+        hss = compression.compress_sharded(x_perm, tree, spec, comp, mesh, device=device)
     else:
         hss = compression.compress(x_perm, tree, spec, comp, device=device)
     hss, rank_info = shrink_report(hss)
@@ -144,7 +155,8 @@ def build(x_perm: np.ndarray, tree: tree_mod.ClusterTree, real: np.ndarray,
     report = FitReport(
         compression_s=t1 - t0, factorization_s=time.perf_counter() - t1, admm_s=0.0,
         memory_mb=hss.memory_bytes() / 1e6, hss_levels=tree.levels, beta=beta,
-        kernel_evals=compression.kernel_eval_count(tree, comp), **rank_info)
+        kernel_evals=compression.kernel_eval_count(tree, comp),
+        mesh_ranks=dist_api.mesh_ndev(hss.mesh), **rank_info)
     if sstats is not None:
         report.peak_stream_bytes = sstats.peak_stream_bytes
         report.stream_batches = sstats.n_batches

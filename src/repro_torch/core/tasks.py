@@ -15,7 +15,9 @@ compression and factorization:
 
 Each bias/offset extraction costs ONE HSS matmat, batched over problem
 columns; the column sums accumulate in f32.  Pads are pinned to the [0, 0]
-box through the participation mask, as in classification.
+box through the participation mask, as in classification.  On a node-split
+HSS matrix the blocks are the rank's rows and the sums local partials
+summed by one all-reduce.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.core.admm import BoxQPTask, box_matrix
 from repro_torch.core.hss import HSSMatrix
+from repro_torch.dist import api as dist_api
 
 
 def _rows(a) -> torch.Tensor:
@@ -56,17 +59,20 @@ def svr_task(targets: torch.Tensor, c_box: torch.Tensor | float,
     )
 
 
-def one_class_task(mask: torch.Tensor, nu: torch.Tensor | float) -> BoxQPTask:
+def one_class_task(mask: torch.Tensor, nu: torch.Tensor | float,
+                   n_real: torch.Tensor | None = None) -> BoxQPTask:
     """Schölkopf ν one-class SVM for k problems.
 
     ``mask`` (k, d) or (d,) participation masks (1 real, 0 pad): the box
     upper bound is mask/(ν·n_real), so pads are pinned to [0, 0] and the
-    mass eᵀα = 1 lives on real points.
+    mass eᵀα = 1 lives on real points.  ``n_real`` (k,): the real points
+    of each problem, ``mask``'s row sums unless given (under a mesh the
+    sum over every rank's rows).
     """
     m = _rows(mask)
     k, d = m.shape
     kw = dict(dtype=m.dtype, device=m.device)
-    n_real = m.sum(1)
+    n_real = m.sum(1) if n_real is None else n_real
     nu_arr = torch.as_tensor(nu, **kw).expand(k)
     return BoxQPTask(
         sign=torch.ones((d, k), **kw),
@@ -99,12 +105,14 @@ def compute_bias_svr_batched(hss: HSSMatrix, targets: torch.Tensor,
     tol = margin_rel * c_mat
     resid = targets - k_alpha - epsilon * torch.sign(alpha)
     on_margin = ((absa > tol) & (absa < c_mat - tol) & (masks > 0)).to(alpha.dtype)
-    n_m = on_margin.sum(0)
-    b_margin = _colsum(on_margin, resid) / torch.clamp(n_m, min=1.0)
     sv = ((absa > tol) & (masks > 0)).to(alpha.dtype)
-    n_sv = sv.sum(0)
-    b_sv = _colsum(sv, resid) / torch.clamp(n_sv, min=1.0)
-    b_all = _colsum(masks, targets - k_alpha) / torch.clamp(masks.sum(0), min=1.0)
+    sums = torch.stack([on_margin.sum(0).float(), _colsum(on_margin, resid),
+                        sv.sum(0).float(), _colsum(sv, resid),
+                        _colsum(masks, targets - k_alpha), masks.sum(0).float()])
+    n_m, r_m, n_sv, r_sv, r_all, n_all = dist_api.all_reduce_sum(sums, hss.mesh)
+    b_margin = r_m / torch.clamp(n_m, min=1.0)
+    b_sv = r_sv / torch.clamp(n_sv, min=1.0)
+    b_all = r_all / torch.clamp(n_all, min=1.0)
     return torch.where(n_m > 0, b_margin, torch.where(n_sv > 0, b_sv, b_all))
 
 
@@ -117,10 +125,12 @@ def compute_rho_oneclass_batched(hss: HSSMatrix, alpha: torch.Tensor,
     k_alpha = hss.matmat(alpha)
     tol = margin_rel * hi_mat
     on_margin = ((alpha > tol) & (alpha < hi_mat - tol) & (masks > 0)).to(alpha.dtype)
-    n_m = on_margin.sum(0)
-    rho_margin = _colsum(on_margin, k_alpha) / torch.clamp(n_m, min=1.0)
     sv = ((alpha > tol) & (masks > 0)).to(alpha.dtype)
-    rho_sv = _colsum(sv, k_alpha) / torch.clamp(sv.sum(0), min=1.0)
+    sums = torch.stack([on_margin.sum(0).float(), _colsum(on_margin, k_alpha),
+                        sv.sum(0).float(), _colsum(sv, k_alpha)])
+    n_m, k_m, n_sv, k_sv = dist_api.all_reduce_sum(sums, hss.mesh)
+    rho_margin = k_m / torch.clamp(n_m, min=1.0)
+    rho_sv = k_sv / torch.clamp(n_sv, min=1.0)
     return torch.where(n_m > 0, rho_margin, rho_sv)
 
 

@@ -30,7 +30,10 @@ multi-RHS solve (the knobs are --svm-c, --svm-eps, --svm-nu, --svm-lam).
 (``--prune-tol`` prunes support vectors on load); ``--serve-dtype
 bfloat16`` evaluates the score blocks from bf16 operands.  On a CUDA device
 every f32 tick runs K1 through one captured CUDA graph per bucket.
-``--svm-mesh`` (a mesh) is ROADMAP queue 1 item 13.
+``--svm-mesh`` trains the model node-split over a mesh of every rank
+(``repro_torch.dist.api``; under ``torchrun`` NCCL on ``cuda:LOCAL_RANK``
+or gloo on the CPU, without it one rank), then gathers it once into the
+serving tier, which serves in each process; rank 0 prints.
 """
 from __future__ import annotations
 
@@ -184,7 +187,19 @@ def serve_lm(args) -> dict:
 
 def serve_svm(args) -> dict:
     """Train one kernel model, serve ``--requests`` requests of ``--batch``
-    points through the serving tier; print and return its numbers."""
+    points through the serving tier; print and return its numbers (under
+    ``--svm-mesh``, trained inside a mesh of every rank)."""
+    if not args.svm_mesh:
+        return _serve_svm(args, torch.device(args.device), None)
+    from repro_torch.dist.api import process_group_mesh
+
+    with process_group_mesh(args.device) as mesh:
+        if mesh.rank == 0:
+            print(mesh.describe())
+        return _serve_svm(args, mesh.device, mesh)
+
+
+def _serve_svm(args, device, mesh) -> dict:
     from repro_torch.core.admm import ADMMParams
     from repro_torch.core.compression import CompressionParams
     from repro_torch.core.engine import HSSSVMEngine
@@ -193,10 +208,8 @@ def serve_svm(args) -> dict:
     from repro_torch.data import synthetic
     from repro_torch.serve import BatchPolicy, ModelRegistry, ServingEngine
 
-    if args.svm_mesh:
-        raise NotImplementedError("--svm-mesh: a mesh is ROADMAP queue 1 item 13")
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
     task = args.task
-    device = torch.device(args.device)
     n_test = max(args.batch, 512)
     # --svm-h defaults to a task-appropriate value for the built-in demo
     # dataset; an explicit value always wins.
@@ -221,13 +234,13 @@ def serve_svm(args) -> dict:
     engine = HSSSVMEngine(
         spec=KernelSpec(h=h), comp=CompressionParams(rank=32, n_near=48, n_far=64),
         leaf_size=256, admm=ADMMParams(max_it=30 if task == "oneclass" else 10),
-        task=task, svr_c=args.svm_c, device=device)
+        task=task, svr_c=args.svm_c, device=device, mesh=mesh)
     model = engine.fit(xtr, None if task == "oneclass" else ytr, c_value=knob)
     _sync(device)
     t_train = time.perf_counter() - t0
     pred = model.predict(xte).cpu().numpy()
     out = dict(task=task, device=str(device), n_train=args.svm_train, knob=knob, h=h,
-               train_s=t_train)
+               train_s=t_train, mesh_ranks=engine.report.mesh_ranks)
     if task in ("svr", "krr", "gp"):
         out["rmse"] = float(np.sqrt(np.mean((pred - yte) ** 2)))
         quality = f"holdout rmse {out['rmse']:.4f}"
@@ -246,18 +259,23 @@ def serve_svm(args) -> dict:
         quality = f"holdout acc {out['accuracy']:.4f}"
         head = f"{args.svm_classes}-class SVM (C={knob})"
     rep = engine.report
-    print(f"trained {head} on {args.svm_train} pts in {t_train:.1f}s (compress "
-          f"{rep.compression_s:.1f}s / factor {rep.factorization_s:.2f}s / batched ADMM "
-          f"{rep.admm_s:.2f}s), {quality}")
+    say(f"trained {head} on {args.svm_train} pts in {t_train:.1f}s (compress "
+        f"{rep.compression_s:.1f}s / factor {rep.factorization_s:.2f}s / batched ADMM "
+        f"{rep.admm_s:.2f}s), {quality}")
 
     # The request loop through the serving tier: ServingEngine.score is the
     # one scoring entry point for every task decode.  --registry round-trips
-    # the model through the persistent registry first.
+    # the model through the persistent registry first.  A mesh model is
+    # gathered once on every rank; rank 0 writes the registry.
+    model = model.gathered()
     registry = None
     if args.registry:
         registry = ModelRegistry(args.registry)
-        version = registry.save(task, model)
-        print(f"registered model {task!r} v{version} under {args.registry}")
+        if mesh is None or mesh.rank == 0:
+            version = registry.save(task, model)
+            say(f"registered model {task!r} v{version} under {args.registry}")
+        if mesh is not None:
+            torch.distributed.barrier(mesh.group)
     serve = ServingEngine(policy=BatchPolicy(compute_dtype=args.serve_dtype),
                           registry=registry, device=device)
     mid = (serve.load(task, prune_tol=args.prune_tol) if registry is not None
@@ -277,8 +295,8 @@ def serve_svm(args) -> dict:
     per_pass = (f"{args.svm_classes} classes" if task == "svm"
                 else {"svr": "regression values", "krr": "regression values",
                       "gp": "posterior means", "oneclass": "novelty scores"}[task])
-    print(f"served {args.requests} requests x batch {args.batch}: {qps:.0f} points/s, "
-          f"latency p50 {p50:.2f}ms p95 {p95:.2f}ms ({per_pass} per pass)")
+    say(f"served {args.requests} requests x batch {args.batch}: {qps:.0f} points/s, "
+        f"latency p50 {p50:.2f}ms p95 {p95:.2f}ms ({per_pass} per pass)")
     out.update(requests=args.requests, batch=args.batch, points_per_s=qps,
                p50_ms=float(p50), p95_ms=float(p95), last_scores=scores,
                stats=serve.stats())
@@ -314,7 +332,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--svm-lam", type=float, default=1.0,
                     help="ridge / GP noise λ (krr and gp)")
     ap.add_argument("--svm-mesh", action="store_true",
-                    help="mesh-parallel build/serve (not in the port: raises)")
+                    help="train node-split over a mesh of every rank (torchrun's, or "
+                         "one), then serve the gathered model")
     ap.add_argument("--registry", default=None,
                     help="model-registry root: save the trained model there and serve "
                          "it back through the registry")

@@ -9,6 +9,8 @@
       --svm-train 16384 --svm-c-grid 0.1,1,10
   PYTHONPATH=src python -m repro_torch.launch.train --task krr \
       --svm-train 16384 --svm-c-grid 0.5,2,8 --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --task svm --svm-mesh --device cpu
 
 The twin of ``repro.launch.train`` on one device.  ``--task lm`` trains
 ``--arch`` at a preset: ``tiny``
@@ -29,7 +31,11 @@ one factorization) then ``train_grid`` over ``--svm-c-grid``, each model
 scored on a held-out set.  ``--task krr`` / ``--task gp`` sweep the ridge
 λ instead (one cached refactorization and one multi-RHS solve each, no
 ADMM) and report RMSE.  On a CUDA device the build runs K1 and K2 and each
-prediction K1.
+prediction K1.  ``--svm-mesh`` runs the engine node-split over a mesh of
+every rank (``repro_torch.dist.api``): under ``torchrun`` the process group
+comes from the environment (NCCL on ``cuda:LOCAL_RANK`` for ``--device
+cuda``, gloo for ``--device cpu``), without it the mesh has one rank.
+Rank 0 prints.
 """
 from __future__ import annotations
 
@@ -41,7 +47,19 @@ import torch
 
 
 def train_svm(args) -> dict:
-    """Prepare once, train the grid; print and return its numbers."""
+    """Prepare once, train the grid; print and return its numbers (under
+    ``--svm-mesh``, inside a mesh of every rank)."""
+    if not args.svm_mesh:
+        return _train_svm(args, torch.device(args.device), None)
+    from repro_torch.dist.api import process_group_mesh
+
+    with process_group_mesh(args.device) as mesh:
+        if mesh.rank == 0:
+            print(mesh.describe())
+        return _train_svm(args, mesh.device, mesh)
+
+
+def _train_svm(args, device, mesh) -> dict:
     from repro_torch.core.admm import ADMMParams
     from repro_torch.core.compression import CompressionParams
     from repro_torch.core.engine import HSSSVMEngine
@@ -49,7 +67,7 @@ def train_svm(args) -> dict:
     from repro_torch.data import synthetic
 
     task = args.task
-    device = torch.device(args.device)
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
     dataset = args.svm_dataset
     if task in ("krr", "gp") and dataset == "blobs":
         dataset = "noisy_sine"        # the regression demo's default
@@ -57,11 +75,15 @@ def train_svm(args) -> dict:
     engine = HSSSVMEngine(
         spec=KernelSpec(h=args.svm_h),
         comp=CompressionParams(rank=args.svm_rank, n_near=48, n_far=64),
-        leaf_size=args.svm_leaf, admm=ADMMParams(max_it=10), task=task, device=device)
+        leaf_size=args.svm_leaf, admm=ADMMParams(max_it=10), task=task, device=device,
+        mesh=mesh)
     t0 = time.perf_counter()
     rep = engine.prepare(xtr, ytr)
-    print(f"prepare: compress {rep.compression_s:.1f}s, factorize "
-          f"{rep.factorization_s:.2f}s, HSS {rep.memory_mb:.1f} MB, beta {rep.beta:g}")
+    if mesh is not None:
+        say(f"mesh-parallel build over {rep.mesh_ranks} of {mesh.size} ranks "
+            f"(e_leaf {tuple(engine.fac.e_leaf.shape)} on each)")
+    say(f"prepare: compress {rep.compression_s:.1f}s, factorize "
+        f"{rep.factorization_s:.2f}s, HSS {rep.memory_mb:.1f} MB, beta {rep.beta:g}")
     c_grid = [float(c) for c in args.svm_c_grid.split(",")]
     regression = task in ("krr", "gp")
     knob_name = "λ" if regression else "C"
@@ -71,20 +93,20 @@ def train_svm(args) -> dict:
         if regression:
             rmse = float(np.sqrt(np.mean((pred - yte) ** 2)))
             grid.append(dict(knob=c, rmse=rmse))
-            print(f"{knob_name}={c:g}: holdout rmse {rmse:.4f} "
-                  f"(admm iters {engine.report.iters_run})")
+            say(f"{knob_name}={c:g}: holdout rmse {rmse:.4f} "
+                f"(admm iters {engine.report.iters_run})")
         else:
             acc = float(np.mean(pred == yte))
             grid.append(dict(knob=c, accuracy=acc))
-            print(f"{knob_name}={c:g}: holdout acc {acc:.4f}")
+            say(f"{knob_name}={c:g}: holdout acc {acc:.4f}")
     total = time.perf_counter() - t0
     stage = "solve" if regression else "ADMM"
-    print(f"done in {total:.1f}s ({stage} total {engine.report.admm_s:.2f}s across the "
-          f"{knob_name} grid)")
+    say(f"done in {total:.1f}s ({stage} total {engine.report.admm_s:.2f}s across the "
+        f"{knob_name} grid)")
     return dict(task=task, device=str(device), dataset=dataset, n_train=args.svm_train,
                 compression_s=rep.compression_s, factorization_s=rep.factorization_s,
                 admm_s=engine.report.admm_s, memory_mb=rep.memory_mb, beta=rep.beta,
-                total_s=total, grid=grid)
+                total_s=total, grid=grid, mesh_ranks=rep.mesh_ranks)
 
 
 def lm_config(arch: str, preset: str):
@@ -237,6 +259,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--svm-c-grid", default="0.1,1,10")
     ap.add_argument("--svm-rank", type=int, default=32)
     ap.add_argument("--svm-leaf", type=int, default=256)
+    ap.add_argument("--svm-mesh", action="store_true",
+                    help="node-split engine over a mesh of every rank (torchrun's, or one)")
     return ap
 
 

@@ -340,7 +340,10 @@ class ServingEngine:
     # ------------------------------------------------------------------ #
     def add_model(self, model: EngineModel, model_id: str | None = None) -> str:
         """Register an in-memory model; returns its id.  Same-key models
-        join the existing cache entry (no second support upload)."""
+        join the existing cache entry (no second support upload).  A model
+        trained under a mesh is gathered once (every rank of the mesh must
+        make this call): serving holds the whole support in one process."""
+        model = model.gathered()
         xs = _host(model.x_perm).astype(np.float32)
         zy = _host(model.z_y)
         if zy.ndim == 1:

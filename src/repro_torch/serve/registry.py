@@ -129,7 +129,11 @@ class ModelRegistry:
     # ------------------------------------------------------------------ #
     def save(self, name: str, model: EngineModel, extra: dict | None = None) -> int:
         """Persist ``model`` as the next version of ``name``; returns it.
-        The arrays are copied to the host, wherever the model lives."""
+        The arrays are copied to the host, wherever the model lives; a
+        model trained under a mesh is gathered first (every rank makes the
+        call, and every rank writes the same artifact: give rank 0 its own
+        registry root, or the others a scratch one)."""
+        model = model.gathered()
         if model.z_y.dim() != 2:
             raise RegistryError("EngineModel.z_y must be (d, P)")
         version = (ckpt.latest_step(self._dir(name)) or 0) + 1

@@ -840,3 +840,42 @@ def test_moe_block_reads_nothing_back_and_repeats_on_the_card(dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+def _blobs_engine(dev, mesh=None, task="svm"):
+    from repro_torch.core.admm import ADMMParams
+    from repro_torch.core.compression import CompressionParams
+    from repro_torch.core.engine import HSSSVMEngine
+    from repro_torch.core.kernelfn import KernelSpec
+    from repro_torch.data import synthetic
+
+    xtr, ytr, xte, _ = synthetic.train_test("blobs", 8192, 512, seed=0, n_features=8, sep=1.6)
+    eng = HSSSVMEngine(spec=KernelSpec(h=1.0), comp=CompressionParams(rank=32, n_near=32,
+                                                                      n_far=32),
+                       leaf_size=256, admm=ADMMParams(max_it=10), mesh=mesh, device=dev,
+                       task=task)
+    eng.prepare(xtr, ytr)
+    model, (z, _) = eng.train(1.0)
+    return eng, model, z, model.decision_function(xte)
+
+
+def test_one_rank_nccl_mesh_engine_matches_the_single_device_engine(dev):
+    """The node-split engine over a one-rank NCCL mesh (real NCCL calls on
+    every gather and sum) against the local engine on the card: the same
+    launches at the same batch sizes, so skeletons, factors, z and scores
+    agree bit for bit."""
+    from repro_torch.dist import api as dist_api
+
+    local, _, z_ref, s_ref = _blobs_engine(dev)
+    with dist_api.process_group_mesh("cuda") as mesh:
+        eng, model, z, s = _blobs_engine(mesh.device, mesh)
+        assert "nccl" in mesh.describe() and mesh.stats["all_gather_calls"] > 0
+        assert eng.report.mesh_ranks == 1 and eng.hss.cut == eng.hss.levels
+        for a, b in zip((eng.hss.skel_leaf, *eng.hss.skels),
+                        (local.hss.skel_leaf, *local.hss.skels)):
+            assert torch.equal(a, b)
+        assert torch.equal(eng.fac.g_leaf, local.fac.g_leaf)
+        assert torch.equal(eng.fac.root_lu, local.fac.root_lu)
+        assert torch.equal(z, z_ref) and torch.equal(s, s_ref)
+        assert torch.equal(model.gathered().z_y, model.z_y)
+    assert not torch.distributed.is_initialized()

@@ -22,6 +22,7 @@ from repro_torch import convert
 from repro_torch.core import admm as tadmm
 from repro_torch.core import svm as tsvm
 from repro_torch.core.compression import CompressionParams as TParams
+from repro_torch.core.compression import StreamParams as TStreamParams
 from repro_torch.core.engine import HSSSVMEngine as TEngine
 from repro_torch.core.kernelfn import KernelSpec as TSpec
 
@@ -198,7 +199,8 @@ def test_paper_beta_identical():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: TEngine(spec=TSpec(), mesh=object(), device="cpu"),
+    # the streamed build under a mesh (the mesh itself is ported)
+    lambda: TEngine(spec=TSpec(), mesh=object(), stream=TStreamParams(), device="cpu"),
 ], ids=["mesh"])
 def test_calls_outside_the_slice_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):

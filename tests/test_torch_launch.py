@@ -84,8 +84,6 @@ def test_paths_not_ported_raise():
 
     with pytest.raises(NotImplementedError, match="item 13"):
         grad_compress.make_compressed_allreduce(None)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        serve.main(["--task", "svm", "--svm-mesh", "--device", "cpu"])
 
 
 def test_entry_points_default_to_the_card():
