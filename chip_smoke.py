@@ -173,6 +173,24 @@ Phases, each printed on its own lines, none of them allowed to fail:
                  1024, 3 steps: the aux term, the first step's loss equal
                  in a second fresh run, one layer's moe_block twice under
                  torch.cuda.set_sync_debug_mode("error"), bit-identical;
+ 29. lm-mesh   — granite-moe-3b-a800m at full size, bf16, batch 2 x 1024:
+                 one loss and gradient in this process, then on a ("data",
+                 "model") (1, 2) mesh of two gloo processes on the card (the
+                 weights by CUDA IPC; each rank 12 query heads, 4 kv heads
+                 and its run of the 48 padded experts): the loss, the grad
+                 norm, per rank ms, peak bytes and collectives; K5 64 a
+                 rank, every launch replayed; the gathered gradients of f32
+                 compute against this process's;
+ 30. mesh-stream — on the same two ranks, [stream-resume]'s 2^17 points
+                 streamed on a ("data",) mesh against compress_sharded;
+ 31. lm-mesh-1 — granite at 2 layers on a (1, 1) mesh over NCCL: the loss
+                 and every gradient equal to the local run's bit for bit;
+ 32. lm-mesh-fsdp — granite at full width, 4 layers, (2, 2) with FSDP, 4
+                 gloo processes, 3 AdamW steps of 4 x 512: every rank the
+                 same losses, step 0 within 2e-2 of one process's;
+ 33. collectives — in the same 4 processes: the compressed all-reduce of 4
+                 x 2^20 f32 against the plain sum, pipeline_forward on a
+                 4-stage mesh against the stages in sequence;
  24. summary   — one JSON line {"kernels": [...]}, then the last line
                  {"ok": true, "device": {...}}.
 Every path runs with the launch counts set to 0 just before it, and checks
@@ -1101,6 +1119,46 @@ def recorder(rec: list):
     return make
 
 
+def moved(obj, where):
+    """A launch's arguments or outputs with every tensor on ``where``."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.to(where)
+    if isinstance(obj, tuple):
+        return tuple(moved(o, where) for o in obj)
+    return obj
+
+
+@contextlib.contextmanager
+def recording(to_host: bool = False):
+    """Keep the arguments of every K1, K4 and K2 launch made inside the
+    block (and K2's pivots and R): the path's own inputs, which its check
+    runs through the plain versions afterwards.  The launchers themselves
+    run once per call, so each launch still counts once.  ``to_host`` keeps
+    host copies, so that the records of a streamed build take no device
+    memory from the working set it measures."""
+    from repro_torch.kernels.compress import kernel as ckern, laplacian as lops
+    from repro_torch.kernels.gaussian import kernel as gkern
+
+    launchers = ((gkern, "gaussian_block_cuda"), (lops, "laplacian_block_cuda"),
+                 (ckern, "fused_assemble_id_cuda"))
+    rec = {name: [] for _, name in launchers}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in launchers]
+    for mod, name, fn in saved:
+        def kept(*args, _fn=fn, _name=name):
+            out = _fn(*args)
+            item = (args, out if _name == "fused_assemble_id_cuda" else None)
+            rec[_name].append(moved(item, "cpu") if to_host else item)
+            return out
+        setattr(mod, name, kept)
+    try:
+        yield rec
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def serve_twice(torch, tag, argv, wraps=()):
     """The serving entry point cold, with the launch counts zeroed just
     before and read just after and each (module, launcher, wrapper) of
@@ -1912,6 +1970,682 @@ def train_phases(torch, dev):
 
 
 # ---------------------------------------------------------------------- #
+# The mesh LM (slice 10): [lm-mesh], [lm-mesh-1], [lm-mesh-fsdp],          #
+# [collectives], [mesh-stream]                                            #
+# ---------------------------------------------------------------------- #
+# [lm-mesh]: granite-moe-3b-a800m at full size (32 layers, d 1536, 24/8
+# heads, 40 experts, top 8), f32 parameters, bf16 compute, remat "block",
+# batch 2 x 1024, seed 0: one loss and its gradient (the train step's
+# gradient path without AdamW's state) on a ("data", "model") mesh (1, 2) of
+# two gloo processes on the one card, against the same model and batch in
+# this process.  Rank r computes 12 query heads and kv heads 4r..4r+3, and
+# the real experts of ids 24r..24r+23 of the 48 padded ones (rank 1: 24-39);
+# its slices reach it from this process's model by CUDA IPC.  At dp 1 the
+# routing and capacity are the single-device ones, so only the bf16 order
+# of the combine and of the wo sum differs (and a routing choice that a
+# bf16 rounding upstream flips).  Bars: the loss 1e-2 relative and the global
+# grad norm 2e-2 of the bf16 run; every K5 launch of each rank replayed
+# through the plain version (k5_bf16_tol).  The gradients: a top-k router
+# is not a continuous function of rounding (a choice flipped by one ulp
+# upstream moves its token's whole contribution, and through capacity
+# other tokens'), and bf16's own rounding already moves a leaf by 2-11% of
+# its largest on this layout at a reduced width on the CPU, the mesh's run
+# by 4-34% (scripts/mesh_bf16_grad_floor.py).  So each rank runs the same
+# loss and gradient once more in f32 compute, recording every layer's
+# routing (_routing_recorder), and the script counts by layer the tokens
+# whose top-8 set differs from this process's f32 run.  The first layer
+# with such a token must hold only rounding ties (margin between the 8th
+# and 9th probability <= MESH_TIE_MARGIN of the token's largest); the
+# gathered f32 gradients of MESH_LEAVES are held to MESH_GRAD32_RTOL of
+# each leaf's largest |g| where no choice differs, MESH_GRAD_RTOL past a
+# flipped tie.  Then the first MESH_SHALLOW layers alone, in f32: their
+# forward is the whole model's, so their routing must equal this
+# process's, and their gradients (MESH_SHALLOW_LEAVES and each rank's first
+# expert) are held to MESH_GRAD32_RTOL: f32 sums in another order.  The
+# bf16 gradients are printed beside, with bf16's own distance from f32.
+MESH_LM_BATCH, MESH_LM_SEQ = 2, 1024
+MESH_LOSS_RTOL, MESH_NORM_RTOL, MESH_GRAD_RTOL = 1e-2, 2e-2, 2e-2
+MESH_LEAVES = ("layers.0.wq", "layers.0.wo", "layers.0.moe.router", "layers.31.wq",
+               "layers.31.wo", "layers.31.moe.router")
+MESH_SHALLOW, MESH_GRAD32_RTOL, MESH_TIE_MARGIN = 4, 1e-4, 1e-5
+MESH_SHALLOW_LEAVES = ("layers.0.wq", "layers.0.wo", "layers.0.moe.router", "layers.3.wq",
+                       "layers.3.wo", "layers.3.moe.router", "embed")
+# [lm-mesh-1]: the same model at 2 layers on a (1, 1) mesh of this process
+# over NCCL: every collective has one rank, and the loss and every gradient
+# equal the local run's bit for bit.
+MESH_ONE_LAYERS = 2
+# [lm-mesh-fsdp]: granite at full width, 4 of 32 layers, ("data", "model")
+# (2, 2), four gloo processes, fsdp=True, 3 AdamW steps of 4 x 512: every
+# rank the same losses; the step-0 loss within the reference's own pin (2e-2,
+# tests/test_dist.py) of this process's, since at dp 2 each data shard
+# routes its own tokens (another function); every rank's K5 launches
+# replayed through the plain version (k5_bf16_tol).
+FSDP_LAYERS, FSDP_STEPS, FSDP_BATCH, FSDP_SEQ, FSDP_LOSS_RTOL = 4, 3, 4, 512, 2e-2
+# [collectives], in the same four processes: the compressed all-reduce of 4 x
+# 2^20 f32 over a ("data",) mesh against the plain sum (the reference's bar,
+# max error / max |sum| < 0.05), and pipeline_forward over a ("stage",) mesh,
+# 6 microbatches of 32 x 1024 through tanh(a W_s + b_s), against the stages
+# in sequence (the reference's rtol 1e-5, atol 1e-6).
+COMP_N, COMP_RTOL = 2 ** 20, 0.05
+PIPE_MICRO, PIPE_MB, PIPE_WIDTH = 6, 32, 1024
+# [mesh-stream]: [stream-resume]'s 2^17 points (crude preset, 16 leaves a
+# batch) streamed on a ("data",) mesh of the two [lm-mesh] processes, each
+# rank its own nodes' batches, against compress_sharded on the same data:
+# skeleton ids equal on K2_PIV_MATCH of the nodes (the batches, and so K2's
+# plans, differ: a rounding tie may flip a pivot), D within K1_ATOL, the
+# observed ranks equal on the same share; each rank's level-loop device
+# peak; and every K1/K2 launch of the rank's build replayed through the
+# plain versions, as [mesh] does.
+
+
+def _gap(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def _checked_k5(rec):
+    """Keep every K5 launch's (args, kw, out) in ``rec`` while it runs."""
+    from repro_torch.kernels.attention import kernel as attn_kern
+
+    orig = attn_kern.flash_attention_cuda
+    attn_kern.flash_attention_cuda = recorder(rec)(orig)
+    return lambda: setattr(attn_kern, "flash_attention_cuda", orig)
+
+
+def _routing_recorder(rec: list, n: int):
+    """Keep the routing of the first ``n`` MoE chunks (the forward's layers,
+    in order): each token's first top_k + 1 experts and probabilities of the
+    f32 router softmax, sorted as ``_moe_local_chunk`` sorts them.  Returns
+    the restore."""
+    import torch
+
+    from repro_torch.models import layers
+
+    orig = layers._moe_local_chunk
+
+    def wrapped(xf, router, *rest):
+        if len(rec) < n:
+            k1 = rest[3] + 1                        # top_k + 1
+            with torch.no_grad():
+                probs = torch.softmax((xf @ router).float(), dim=-1)
+                vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+            rec.append((idx[:, :k1].cpu(), vals[:, :k1].cpu()))
+        return orig(xf, router, *rest)
+
+    layers._moe_local_chunk = wrapped
+    return lambda: setattr(layers, "_moe_local_chunk", orig)
+
+
+def _routing_diff(mine: list, ref: list, top_k: int) -> tuple[list, list]:
+    """Per layer, the tokens whose set of top_k experts differs between two
+    runs' routing records, and over those tokens the largest margin in
+    ``ref`` between the k-th and the (k+1)-th probability, of the token's
+    largest (0 where none differs).  A choice that rounding flips sits at a
+    margin near 0; past the first layer that flips one, a token's inputs
+    differ by more than rounding (its own flip, or another token's through
+    capacity and attention)."""
+    per_layer, margins = [], []
+    for (ia, _), (ib, vb) in zip(mine, ref):
+        diff = (ia[:, :top_k].sort(-1).values != ib[:, :top_k].sort(-1).values).any(-1)
+        per_layer.append(int(diff.sum()))
+        margins.append(((vb[diff, top_k - 1] - vb[diff, top_k]) / vb[diff, 0]).max().item()
+                       if bool(diff.any()) else 0.0)
+    return per_layer, margins
+
+
+def lm_mesh_rank(mesh, cfg, state, batch, want_grads, stream_case):
+    """One rank of [lm-mesh] (then of [mesh-stream]): the model's slices
+    from ``state`` (this process's whole tensors, by CUDA IPC), one loss and
+    gradient with the counts zeroed before and read after, its K5 launches
+    replayed, the global grad norm, the ``want_grads`` leaves gathered
+    (rank 0) and the rank's first expert's gradient.  Numbers and CPU
+    tensors only."""
+    import torch
+
+    from repro_torch.dist import api as dist_api, sharding
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import optim
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = sharding.shard_model(Model(cfg, device="meta"), mesh, full=state).trainable()
+    del state
+    params = dict(model.named_parameters())
+    out = dict(rank=mesh.rank, describe=mesh.describe(),
+               params_local=sum(p.numel() for p in params.values()),
+               experts=sharding.expert_range(cfg.n_experts, dist_api.axis_size("model", mesh),
+                                             dist_api.axis_index("model", mesh)))
+    rec = []
+    restore = _checked_k5(rec)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        mesh.reset_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with dist_api.use_mesh(mesh):
+            loss, met = model.loss_fn(sharding.shard_batch(batch, mesh))
+            got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+            grads = sharding.sync_grads({k: torch.zeros_like(p) if g is None else g
+                                         for (k, p), g in zip(params.items(), got)}, model, mesh)
+            norm = optim.global_norm(grads, {k: sharding.counted(model.placement[k], mesh)
+                                             for k in grads}, mesh)
+        torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+        out["launches"] = dict(_build.launch_counts)
+        out["traffic"] = dict(mesh.stats)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    finally:
+        restore()
+    del got
+    out.update(loss=loss.item(), ce=met["ce"].item(), aux=met["aux"].item(),
+               grad_norm=norm.item())
+    out["k5_err"], out["k5_steps"] = k5_replay(rec)
+    out["k5_replayed"] = len(rec)
+    del rec
+    for tag in ("", "32"):
+        if tag:         # the same loss and gradient once more in f32 compute
+            model.cfg = dataclasses.replace(cfg, compute_dtype="float32")
+            out["routing32"] = []
+            restore = _routing_recorder(out["routing32"], cfg.n_layers)
+            try:
+                with dist_api.use_mesh(mesh):
+                    loss, _ = model.loss_fn(sharding.shard_batch(batch, mesh))
+                    got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+                    grads = sharding.sync_grads(
+                        {k: torch.zeros_like(p) if g is None else g
+                         for (k, p), g in zip(params.items(), got)}, model, mesh)
+            finally:
+                restore()
+            out["loss32"] = loss.item()
+            del got
+        with dist_api.use_mesh(mesh):
+            for k, p in params.items():
+                p.grad = grads[k] if k in want_grads else None
+            gathered = {k: sharding.gather_param(model, k, mesh, grads=True).cpu()
+                        for k in want_grads}
+        out["grads" + tag] = gathered if mesh.rank == 0 else None
+        out["expert_grad" + tag] = grads["layers.0.moe.w_gate"][0].cpu()
+        for p in params.values():
+            p.grad = None
+        del grads, gathered
+        torch.cuda.empty_cache()
+    # the first MESH_SHALLOW layers alone, in f32: their forward is the whole
+    # model's, so their routing is the one-process run's (checked)
+    del params
+    every = model.layers
+    model.layers = every[:MESH_SHALLOW]
+    model.cfg = dataclasses.replace(cfg, n_layers=MESH_SHALLOW, compute_dtype="float32")
+    sparams = dict(model.named_parameters())
+    out["routing_shallow"] = []
+    restore = _routing_recorder(out["routing_shallow"], MESH_SHALLOW)
+    try:
+        with dist_api.use_mesh(mesh):
+            loss, _ = model.loss_fn(sharding.shard_batch(batch, mesh))
+            got = torch.autograd.grad(loss, list(sparams.values()), allow_unused=True)
+            grads = sharding.sync_grads({k: torch.zeros_like(p) if g is None else g
+                                         for (k, p), g in zip(sparams.items(), got)}, model, mesh)
+            for k, p in sparams.items():
+                p.grad = grads[k] if k in MESH_SHALLOW_LEAVES else None
+            gathered = {k: sharding.gather_param(model, k, mesh, grads=True).cpu()
+                        for k in MESH_SHALLOW_LEAVES}
+    finally:
+        restore()
+    out["loss_shallow"] = loss.item()
+    out["grads_shallow"] = gathered if mesh.rank == 0 else None
+    out["expert_grad_shallow"] = grads["layers.0.moe.w_gate"][0].cpu()
+    del got, grads, gathered, sparams, every, model
+    torch.cuda.empty_cache()
+    out["stream"] = mesh_stream_rank(mesh, *stream_case)
+    return out
+
+
+def mesh_stream_rank(lm_mesh, xr, tree, pad_from):
+    """[mesh-stream] on one rank: compress_sharded, then compress_streamed
+    on the same ("data",) mesh with the counts zeroed before and read after
+    and every K1/K2 launch's inputs (and K2's pivots and R) kept on the
+    host; the same build again unrecorded for its time, device peak and
+    traffic; the builds compared on the rank's arrays, and every kept launch
+    run again through the kernel and the plain version."""
+    import torch
+
+    from repro_torch.core import compression
+    from repro_torch.core.compression import CompressionParams, StreamParams
+    from repro_torch.core.kernelfn import KernelSpec
+    from repro_torch.dist import api as dist_api
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gaussian import kernel as gkern, ref as gref
+
+    mesh = dist_api.make_mesh(lm_mesh.device)
+    spec, crude = KernelSpec(h=H), CompressionParams.crude()
+    sharded = compression.compress_sharded(xr, tree, spec, crude, mesh, device=mesh.device)
+
+    def build():
+        return compression.compress_streamed(xr, tree, spec, crude,
+                                             StreamParams(batch_leaves=STREAM_BATCH),
+                                             mesh=mesh, device=mesh.device)
+
+    with recording(to_host=True) as rec:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        hss_rec, _ = build()
+        launches = dict(_build.launch_counts)
+    torch.cuda.synchronize()
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    hss, st = build()
+    torch.cuda.synchronize()
+    out = dict(s=time.perf_counter() - t0, launches=launches,
+               batches=st.n_batches, device_peak=st.device_peak_bytes,
+               peak_stream_bytes=st.peak_stream_bytes, traffic=dict(mesh.stats), cut=hss.cut,
+               sharded_cut=sharded.cut, node_range=hss.node_range(0),
+               same_recorded=all(torch.equal(a, b) for a, b in
+                                 zip((hss.skel_leaf, *hss.skels, hss.d_leaf),
+                                     (hss_rec.skel_leaf, *hss_rec.skels, hss_rec.d_leaf))))
+    del hss_rec
+    dev = mesh.device
+    out["k1_err"] = max(block_err(torch, moved(args, dev), gkern.gaussian_block_cuda,
+                                  gref.gaussian_block_ref, spec, pad_from)[0]
+                        for args, _ in rec["gaussian_block_cuda"])
+    res = [k2_against_plain(moved(args, dev), moved(o, dev), crude.rtol, spec, pad_from)
+           for args, o in rec["fused_assemble_id_cuda"]]
+    out.update(k1_replayed=len(rec["gaussian_block_cuda"]),
+               k2_replayed=len(res), k2_nodes=sum(r_["nodes"] for r_ in res),
+               k2_mismatches=sum(r_["mismatches"] for r_ in res),
+               k2_untied=sum(r_["untied"] for r_ in res),
+               k2_off_greedy=sum(r_["off_greedy"] for r_ in res),
+               k2_r_err=max(r_["r_err"] for r_ in res))
+    del rec, res
+    torch.cuda.empty_cache()
+    same = nodes = 0
+    for a, b in zip((hss.skel_leaf, *hss.skels), (sharded.skel_leaf, *sharded.skels)):
+        same += int((a == b).all(1).sum())
+        nodes += a.shape[0]
+    ranks_same = sum(int((a == b).sum()) for a, b in
+                     zip((hss.leaf_ranks, *hss.level_ranks),
+                         (sharded.leaf_ranks, *sharded.level_ranks)))
+    out.update(skel_same=same, skel_nodes=nodes, ranks_same=ranks_same,
+               d_err=(hss.d_leaf - sharded.d_leaf).abs().max().item())
+    return out
+
+
+def lm_fsdp_rank(mesh, cfg, state, batches, comp_g, pipe):
+    """One rank of [lm-mesh-fsdp] and [collectives]."""
+    import torch
+
+    from repro_torch.dist import api as dist_api, sharding
+    from repro_torch.dist.pipeline import pipeline_forward
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import grad_compress, optim
+    from repro_torch.train.step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = sharding.shard_model(Model(cfg, device="meta"), mesh, fsdp=True, full=state)
+    del state
+    step = make_train_step(model)
+    opt = optim.adamw_init(dict(model.named_parameters()))
+    out = dict(rank=mesh.rank, describe=mesh.describe(),
+               params_local=sum(p.numel() for p in model.parameters()), losses=[],
+               grad_norms=[], step_ms=[])
+    rec = []
+    restore = _checked_k5(rec)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        mesh.reset_stats()
+        _build.reset_launch_counts()
+        with dist_api.use_mesh(mesh):
+            for b in batches:
+                t0 = time.perf_counter()
+                opt, met = step(opt, sharding.shard_batch(b, mesh))
+                out["losses"].append(met["loss"].item())
+                out["grad_norms"].append(met["grad_norm"].item())
+                out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out.update(launches=dict(_build.launch_counts), traffic=dict(mesh.stats),
+                   peak_bytes=torch.cuda.max_memory_allocated() - base)
+    finally:
+        restore()
+    del model, step, opt
+    out["k5_err"], out["k5_steps"] = k5_replay(rec)
+    out["k5_replayed"] = len(rec)
+    del rec
+    torch.cuda.empty_cache()
+
+    flat = dist_api.make_mesh(mesh.device)
+    g = comp_g[flat.rank]
+    flat.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summed = grad_compress.make_compressed_allreduce(flat, "data")(g)
+    torch.cuda.synchronize()
+    comp_ms = (time.perf_counter() - t0) * 1e3
+    plain = dist_api.psum(g, "data", flat)
+    out["compressed"] = dict(ms=comp_ms, traffic=dict(flat.stats),
+                             rel=((summed - plain).abs().max() / plain.abs().max()).item())
+    stages = dist_api.make_mesh(mesh.device, (mesh.size,), ("stage",))
+    s = dist_api.axis_index("stage", stages)
+    w, bias, x = pipe
+    stages.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = pipeline_forward(lambda p, a: torch.tanh(a @ p[0] + p[1]), (w[s], bias[s]), x, stages)
+    torch.cuda.synchronize()
+    seq = x
+    for j in range(stages.size):
+        seq = torch.tanh(seq @ w[j] + bias[j])
+    out["pipeline"] = dict(ms=(time.perf_counter() - t0) * 1e3, traffic=dict(stages.stats),
+                           close=bool(torch.allclose(y, seq, rtol=1e-5, atol=1e-6)),
+                           err=(y - seq).abs().max().item())
+    return out
+
+
+def lm_mesh_phases(torch, dev):
+    """[lm-mesh], [lm-mesh-1], [mesh-stream], [lm-mesh-fsdp] and
+    [collectives].  Returns each path's launch counts by rank, and the
+    largest error of [lm-mesh]'s and [lm-mesh-fsdp]'s K5 launches against
+    the plain version."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import tree as tree_mod
+    from repro_torch.data import synthetic
+    from repro_torch.data.tokens import batch_for_config, to_device
+    from repro_torch.dist import api as dist_api, sharding
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import optim
+
+    paths = {}
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device=dev)
+
+    # ---- [lm-mesh]: the one-process run, then two ranks ---------------- #
+    model = Model(cfg, device=dev).init(gen.manual_seed(0)).trainable()
+    batch = to_device(batch_for_config(cfg, MESH_LM_BATCH, MESH_LM_SEQ, 0), dev)
+    params = dict(model.named_parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, met = model.loss_fn(batch)
+    got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    grads = {k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(params.items(), got)}
+    norm = optim.global_norm(grads).item()
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    one_counts = dict(_build.launch_counts)
+    one_peak = torch.cuda.max_memory_allocated()
+    ref = dict(loss=loss.item(), aux=met["aux"].item(), norm=norm,
+               grads={k: grads[k].cpu() for k in MESH_LEAVES})
+    e_pad, _, _ = sharding.expert_range(cfg.n_experts, 2, 0)
+    firsts = [0, e_pad // 2]                 # each rank's first expert
+    ref["experts"] = [grads["layers.0.moe.w_gate"][e].cpu() for e in firsts]
+    del got, grads, loss, met
+    # the same model and batch computing in f32: the gradients' reference,
+    # and how far bf16's own rounding moves them
+    model.cfg = dc.replace(cfg, compute_dtype="float32")
+    routing32 = []
+    restore = _routing_recorder(routing32, cfg.n_layers)
+    try:
+        loss32, _ = model.loss_fn(batch)
+        got = torch.autograd.grad(loss32, list(params.values()), allow_unused=True)
+    finally:
+        restore()
+    g32 = dict(zip(params, got))
+    ref["grads32"] = {k: g32[k].cpu() for k in MESH_LEAVES}
+    ref["experts32"] = [g32["layers.0.moe.w_gate"][e].cpu() for e in firsts]
+    floor = {k: _gap(ref["grads"][k], ref["grads32"][k]) for k in MESH_LEAVES}
+    del got, g32
+    # the first MESH_SHALLOW layers alone, in f32
+    every = model.layers
+    model.layers = every[:MESH_SHALLOW]
+    model.cfg = dc.replace(cfg, n_layers=MESH_SHALLOW, compute_dtype="float32")
+    sparams = dict(model.named_parameters())
+    routing_shallow = []
+    restore = _routing_recorder(routing_shallow, MESH_SHALLOW)
+    try:
+        loss_sh, _ = model.loss_fn(batch)
+        got = torch.autograd.grad(loss_sh, list(sparams.values()), allow_unused=True)
+    finally:
+        restore()
+    gs = dict(zip(sparams, got))
+    ref["shallow"] = {k: gs[k].cpu() for k in MESH_SHALLOW_LEAVES}
+    ref["experts_shallow"] = [gs["layers.0.moe.w_gate"][e].cpu() for e in firsts]
+    model.layers = every
+    model.cfg = cfg
+    del got, gs, sparams, every
+    model.requires_grad_(False)
+    torch.cuda.empty_cache()
+    print(f"[lm-mesh] one process: {MOE_ARCH} {cfg.n_layers} layers, "
+          f"{sum(p.numel() for p in params.values())} parameters, batch {MESH_LM_BATCH} x "
+          f"{MESH_LM_SEQ}: loss {ref['loss']:.6f}, aux {ref['aux']:.6f}, grad norm {norm:.6f}; "
+          f"loss and gradient {one_ms:.1f} ms, peak {one_peak} bytes; launches "
+          f"{json.dumps(one_counts)}; in f32 compute: loss {loss32.item():.6f}, the bf16 "
+          f"gradients' distance from the f32 ones, of each leaf's largest: "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in floor.items()})}")
+
+    rdata = synthetic.train_test("blobs", RESUME_N, N_TEST, seed=0, n_features=N_FEATURES,
+                                 sep=SEP)
+    x_pad, _, _, r_levels = tree_mod.pad_dataset(rdata[0], rdata[1].astype(np.float32), LEAF)
+    r_pad_from = float(rdata[0][:, 0].max())
+    r_tree = tree_mod.build_tree(x_pad, LEAF, r_levels)
+    state = {k: p.detach() for k, p in params.items()}
+    t0 = time.perf_counter()
+    runs = dist_api.spawn(lm_mesh_rank, 2, cfg, state, batch, MESH_LEAVES,
+                          (x_pad[r_tree.perm], r_tree, r_pad_from), backend="gloo", device=dev.type,
+                          mesh_shape=(1, 2), mesh_names=("data", "model"))
+    t_spawn = time.perf_counter() - t0
+    torch.cuda.ipc_collect()
+    del state, params, model
+    torch.cuda.empty_cache()
+    want5 = 2 * cfg.n_layers                     # forward and each layer's recompute
+    for o in runs:
+        r = o["rank"]
+        paths[f"lm-mesh-rank{r}"] = o["launches"]
+        _, first, end = o["experts"]
+        gap = abs(o["loss"] - ref["loss"]) / abs(ref["loss"])
+        ngap = abs(o["grad_norm"] - ref["norm"]) / ref["norm"]
+        egap = _gap(o["expert_grad32"], ref["experts32"][r])
+        print(f"[lm-mesh] world 2 rank {r}: {o['describe']}; {o['params_local']} parameters "
+              f"here (12 query heads, kv heads {4 * r}..{4 * r + 3}, real experts "
+              f"{first}..{end - 1}); loss and gradient {o['ms']:.1f} ms, peak "
+              f"{o['peak_bytes']} bytes above the parameters; collectives "
+              f"{json.dumps(o['traffic'])}; loss {o['loss']:.6f} (gap {gap:.3e}, bar "
+              f"{MESH_LOSS_RTOL:g}), aux {o['aux']:.6f}, grad norm {o['grad_norm']:.6f} (gap "
+              f"{ngap:.3e}, bar {MESH_NORM_RTOL:g}); expert {first}'s w_gate gradient in f32 "
+              f"compute {egap:.3e} of its largest (bar {MESH_GRAD_RTOL:g}), in bf16 "
+              f"{_gap(o['expert_grad'], ref['experts'][r]):.3e}; launches "
+              f"{json.dumps(o['launches'])}; K5 {o['k5_replayed']} launches replayed, "
+              f"max_abs_err {o['k5_err']:.3e}, worst {o['k5_steps']:.2f} bf16 steps (bar 1)")
+        check(gap <= MESH_LOSS_RTOL and ngap <= MESH_NORM_RTOL and egap <= MESH_GRAD_RTOL,
+              f"lm-mesh: rank {r} disagrees with the one-process run")
+        check(o["launches"]["flash_attention"] == want5 == o["k5_replayed"]
+              and o["k5_steps"] <= 1, f"lm-mesh: rank {r}'s K5 launches")
+        check(math.isfinite(o["loss"]) and o["aux"] > 0, f"lm-mesh: rank {r}'s loss")
+    check(runs[0]["loss"] == runs[1]["loss"], "lm-mesh: the ranks' losses differ")
+    k5_err = max(o["k5_err"] for o in runs)
+    gaps = {k: _gap(runs[0]["grads32"][k], ref["grads32"][k]) for k in MESH_LEAVES}
+    gaps16 = {k: _gap(runs[0]["grads"][k], ref["grads"][k]) for k in MESH_LEAVES}
+    check(one_counts["flash_attention"] == want5, f"lm-mesh: one-process K5 {one_counts}")
+    # the f32 pass at full depth: the loss gap, and the routing choices that
+    # differ from the one-process run's, by layer
+    gap32 = abs(runs[0]["loss32"] - loss32.item()) / abs(loss32.item())
+    flips, margins = _routing_diff(runs[0]["routing32"], routing32, cfg.top_k)
+    same_ranks = _routing_diff(runs[1]["routing32"], runs[0]["routing32"], cfg.top_k)[0]
+    first_flip = next((i for i, n in enumerate(flips) if n), None)
+    n_tok = routing32[0][0].shape[0]
+    print(f"[lm-mesh] f32 compute, {cfg.n_layers} layers: loss {runs[0]['loss32']:.6f} against "
+          f"one process's {loss32.item():.6f} (gap {gap32:.3e}); tokens whose top-{cfg.top_k} "
+          f"experts differ from the one-process run's, of {n_tok} a layer, by layer: {flips} "
+          f"({sum(flips)} in all; rank 1's routing against rank 0's: {sum(same_ranks)}); the "
+          f"first layer with one: {first_flip}, its largest margin between the k-th and "
+          f"(k+1)-th probability "
+          f"{margins[first_flip] if first_flip is not None else 0.0:.3e} of the token's largest "
+          f"(bar {MESH_TIE_MARGIN:g}: a rounding tie), the later layers' "
+          f"{json.dumps([float(f'{m:.3e}') for m in margins])}")
+    check(len(flips) == cfg.n_layers and sum(same_ranks) == 0,
+          "lm-mesh: the ranks' routing differs")
+    check(first_flip is None or margins[first_flip] <= MESH_TIE_MARGIN,
+          "lm-mesh: the first routing choice that differs is not a rounding tie")
+    # the gathered f32 gradients at full depth, where flips allow it, and of
+    # the first MESH_SHALLOW layers alone, whose routing must be equal
+    bar32 = MESH_GRAD32_RTOL if first_flip is None else MESH_GRAD_RTOL
+    flips_sh, _ = _routing_diff(runs[0]["routing_shallow"], routing_shallow, cfg.top_k)
+    gaps_sh = {k: _gap(runs[0]["grads_shallow"][k], ref["shallow"][k])
+               for k in MESH_SHALLOW_LEAVES}
+    for o in runs:
+        gaps_sh[f"expert {firsts[o['rank']]} w_gate"] = _gap(o["expert_grad_shallow"],
+                                                            ref["experts_shallow"][o["rank"]])
+    gap_sh = abs(runs[0]["loss_shallow"] - loss_sh.item()) / abs(loss_sh.item())
+    print(f"[lm-mesh] gathered gradients against the one-process run's, of each leaf's "
+          f"largest: in f32 compute at {cfg.n_layers} layers "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in gaps.items()})} (bar {bar32:g}: "
+          f"{MESH_GRAD32_RTOL:g} with the routing equal, {MESH_GRAD_RTOL:g} past a flipped "
+          f"tie); in bf16 {json.dumps({k: float(f'{v:.3e}') for k, v in gaps16.items()})}; "
+          f"two processes {t_spawn:.1f} s with [mesh-stream], start included")
+    print(f"[lm-mesh] the first {MESH_SHALLOW} layers alone in f32: tokens whose experts "
+          f"differ {flips_sh}, loss gap {gap_sh:.3e}, gradients "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in gaps_sh.items()})} of each leaf's "
+          f"largest (bar {MESH_GRAD32_RTOL:g})")
+    check(max(gaps.values()) <= bar32, "lm-mesh: a gathered gradient disagrees")
+    check(sum(flips_sh) == 0 and max(gaps_sh.values()) <= MESH_GRAD32_RTOL,
+          f"lm-mesh: the first {MESH_SHALLOW} layers' f32 gradients disagree")
+
+    # ---- [mesh-stream] -------------------------------------------------- #
+    for o in runs:
+        s = o["stream"]
+        r = o["rank"]
+        paths[f"mesh-stream-rank{r}"] = s["launches"]
+        print(f"[mesh-stream] rank {r}: {RESUME_N} points, levels {r_levels}, cut {s['cut']} "
+              f"(compress_sharded's {s['sharded_cut']}), leaves {s['node_range']}: "
+              f"{s['batches']} batches in {s['s']:.3f} s, stream_device_peak_bytes "
+              f"{s['device_peak']}, peak_stream_bytes {s['peak_stream_bytes']}; against "
+              f"compress_sharded: skeletons equal on {s['skel_same']} of {s['skel_nodes']} "
+              f"nodes, observed ranks equal on {s['ranks_same']}, D max_abs_err "
+              f"{s['d_err']:.3e} (tol {K1_ATOL:g}); collectives {json.dumps(s['traffic'])}; "
+              f"launches {json.dumps(s['launches'])}; the recorded build equal to the timed "
+              f"one: {s['same_recorded']}")
+        print(f"[mesh-stream] rank {r}: replayed {s['k1_replayed']} K1 launches (max_abs_err "
+              f"{s['k1_err']:.3e}, tol {K1_ATOL:g}) and {s['k2_replayed']} K2 launches against "
+              f"the plain versions: live-pivot mismatches {s['k2_mismatches']}/{s['k2_nodes']}, "
+              f"not ties {s['k2_untied']}, off greedy {s['k2_off_greedy']}, R max_abs_err "
+              f"{s['k2_r_err']:.3e} (tol {K2_R_ATOL:g})")
+        check(s["same_recorded"], "mesh-stream: the recorded build differs from the timed one")
+        check(s["k1_replayed"] == s["launches"]["gaussian_block"] and s["k1_err"] <= K1_ATOL,
+              f"mesh-stream: rank {r}'s K1 launches against the plain version")
+        check(s["k2_replayed"] == s["launches"]["fused_assemble_id"]
+              and 1 - s["k2_mismatches"] / s["k2_nodes"] >= K2_PIV_MATCH
+              and s["k2_untied"] == 0 and s["k2_off_greedy"] == 0
+              and s["k2_r_err"] <= K2_R_ATOL,
+              f"mesh-stream: rank {r}'s K2 launches against the plain version")
+        check(s["cut"] == s["sharded_cut"] > 0, "mesh-stream: the cut differs")
+        check(s["skel_same"] >= K2_PIV_MATCH * s["skel_nodes"]
+              and s["ranks_same"] >= K2_PIV_MATCH * s["skel_nodes"] and s["d_err"] <= K1_ATOL,
+              f"mesh-stream: rank {r} disagrees with compress_sharded")
+        check(s["launches"]["gaussian_block"] == s["batches"]
+              and s["launches"]["fused_assemble_id"] == s["batches"] - 1,
+              f"mesh-stream: launches {s['launches']} for {s['batches']} batches")
+        check(s["device_peak"] is not None and s["device_peak"] <= STREAM_DEVICE_PEAK_MAX,
+              "mesh-stream: the level loop's device peak")
+    del runs
+
+    # ---- [lm-mesh-1]: a (1, 1) mesh over NCCL, bit for bit ------------- #
+    small = dc.replace(cfg, n_layers=MESH_ONE_LAYERS)
+
+    def one_rank(mesh):
+        m = Model(small, device=dev).init(gen.manual_seed(0))
+        if mesh is not None:
+            sharding.shard_model(m, mesh)
+        m.trainable()
+        ps = list(m.parameters())
+        with dist_api.use_mesh(mesh):
+            loss_, _ = m.loss_fn(batch)
+            gs = torch.autograd.grad(loss_, ps)
+        return loss_, gs
+
+    _build.reset_launch_counts()
+    loss_l, g_l = one_rank(None)
+    with dist_api.process_group_mesh(dev.type):
+        mesh1 = dist_api.make_mesh(dev, (1, 1), ("data", "model"))
+        _build.reset_launch_counts()
+        loss_m, g_m = one_rank(mesh1)
+        paths["lm-mesh-1"] = dict(_build.launch_counts)
+        backend = mesh1.describe()
+    bitwise = bool(torch.equal(loss_l, loss_m)) and all(torch.equal(a, b)
+                                                        for a, b in zip(g_l, g_m))
+    print(f"[lm-mesh-1] {MESH_ONE_LAYERS} layers on {backend}: loss {loss_m.item():.6f}, the "
+          f"loss and all {len(g_m)} gradients equal to the local run's bit for bit: "
+          f"{bitwise}; launches {json.dumps(paths['lm-mesh-1'])}")
+    check(bitwise, "lm-mesh-1: the one-rank mesh differs from the local run")
+    del g_l, g_m, batch
+    torch.cuda.empty_cache()
+
+    # ---- [lm-mesh-fsdp] and [collectives]: four processes -------------- #
+    fcfg = dc.replace(cfg, n_layers=FSDP_LAYERS)
+    model = Model(fcfg, device=dev).init(gen.manual_seed(0))
+    batches = [to_device(batch_for_config(fcfg, FSDP_BATCH, FSDP_SEQ, k), dev)
+               for k in range(FSDP_STEPS)]
+    with torch.no_grad():
+        loss0 = model.loss_fn(batches[0])[0].item()
+    state = {k: p.detach() for k, p in model.named_parameters()}
+    g_comp = torch.randn((4, COMP_N), device=dev, generator=gen.manual_seed(5))
+    pipe = (torch.randn((4, PIPE_WIDTH, PIPE_WIDTH), device=dev, generator=gen.manual_seed(6))
+            / PIPE_WIDTH ** 0.5,
+            0.1 * torch.randn((4, PIPE_WIDTH), device=dev, generator=gen.manual_seed(7)),
+            torch.randn((PIPE_MICRO, PIPE_MB, PIPE_WIDTH), device=dev,
+                        generator=gen.manual_seed(8)))
+    t0 = time.perf_counter()
+    runs = dist_api.spawn(lm_fsdp_rank, 4, fcfg, state, batches, g_comp, pipe,
+                          backend="gloo", device=dev.type, mesh_shape=(2, 2),
+                          mesh_names=("data", "model"))
+    t_spawn = time.perf_counter() - t0
+    torch.cuda.ipc_collect()
+    del state, model, batches, g_comp, pipe
+    torch.cuda.empty_cache()
+    want5 = 2 * FSDP_LAYERS * FSDP_STEPS
+    for o in runs:
+        r = o["rank"]
+        paths[f"lm-mesh-fsdp-rank{r}"] = o["launches"]
+        print(f"[lm-mesh-fsdp] rank {r}: {o['describe']}; {o['params_local']} parameters "
+              f"here; losses {[round(v, 6) for v in o['losses']]}, grad norms "
+              f"{[round(v, 4) for v in o['grad_norms']]}; step ms "
+              f"{[round(v, 1) for v in o['step_ms']]}; peak {o['peak_bytes']} bytes above the "
+              f"parameters; collectives {json.dumps(o['traffic'])}; launches "
+              f"{json.dumps(o['launches'])}; K5 {o['k5_replayed']} launches replayed, "
+              f"max_abs_err {o['k5_err']:.3e}, worst {o['k5_steps']:.2f} bf16 steps (bar 1)")
+        check(o["losses"] == runs[0]["losses"] and all(math.isfinite(v) for v in o["losses"]),
+              f"lm-mesh-fsdp: rank {r}'s losses differ")
+        check(o["launches"]["flash_attention"] == want5 == o["k5_replayed"]
+              and o["k5_steps"] <= 1, f"lm-mesh-fsdp: rank {r}'s K5 launches")
+        k5_err = max(k5_err, o["k5_err"])
+    gap = abs(runs[0]["losses"][0] - loss0) / abs(loss0)
+    print(f"[lm-mesh-fsdp] step-0 loss {runs[0]['losses'][0]:.6f} against one process's "
+          f"{loss0:.6f}: gap {gap:.3e} (bar {FSDP_LOSS_RTOL:g}); four processes "
+          f"{t_spawn:.1f} s with [collectives], start included")
+    check(gap <= FSDP_LOSS_RTOL, "lm-mesh-fsdp: the step-0 loss")
+    for o in runs:
+        c, p = o["compressed"], o["pipeline"]
+        print(f"[collectives] rank {o['rank']}: compressed all-reduce of {COMP_N} f32 over 4 "
+              f"ranks {c['ms']:.3f} ms, error {c['rel']:.3e} of the largest |sum| (bar "
+              f"{COMP_RTOL:g}), traffic {json.dumps(c['traffic'])}; pipeline_forward "
+              f"{PIPE_MICRO} microbatches x 4 stages {p['ms']:.3f} ms, max_abs_err "
+              f"{p['err']:.3e} against the stages in sequence, traffic "
+              f"{json.dumps(p['traffic'])}")
+        chunk = COMP_N // 4
+        blocks = chunk // 2048
+        check(c["rel"] < COMP_RTOL and c["traffic"]["all_to_all_bytes"] == COMP_N + 4 * blocks * 4
+              and c["traffic"]["all_gather_bytes"] == chunk + blocks * 4,
+              "collectives: the compressed all-reduce")
+        check(p["close"], "collectives: the pipeline disagrees with the stages in sequence")
+    return paths, k5_err
+
+
+# ---------------------------------------------------------------------- #
 # The mesh (slice 9): [mesh], [main]'s configuration node-split            #
 # ---------------------------------------------------------------------- #
 # [main]'s 10^6 points (2^20 padded, 12 levels, rank 32, leaf 256, beta
@@ -1949,7 +2683,7 @@ def mesh_rank(mesh, data, refs, pad_from):
     from repro_torch.core.kernelfn import DEFAULT_SCORE_BLOCK, KernelSpec
     from repro_torch.dist import api as dist_api
     from repro_torch.kernels import _build
-    from repro_torch.kernels.compress import kernel as ckern, verify
+    from repro_torch.kernels.compress import verify
     from repro_torch.kernels.gaussian import kernel as gkern, ref as gref
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1958,17 +2692,8 @@ def mesh_rank(mesh, data, refs, pad_from):
     xtr, ytr, xte, yte = data
     engine = HSSSVMEngine(spec=spec, comp=comp, leaf_size=LEAF,
                           admm=ADMMParams(max_it=MAX_IT), mesh=mesh, device=mesh.device)
-    # the path's K1/K2 inputs (and K2's pivots and R), as recording() keeps them
-    rec = {"gaussian_block_cuda": [], "fused_assemble_id_cuda": []}
-    saved = [(mod, name, getattr(mod, name)) for mod, name in
-             ((gkern, "gaussian_block_cuda"), (ckern, "fused_assemble_id_cuda"))]
-    for mod, name, fn in saved:
-        def kept(*args, _fn=fn, _name=name):
-            out = _fn(*args)
-            rec[_name].append((args, out if _name == "fused_assemble_id_cuda" else None))
-            return out
-        setattr(mod, name, kept)
-    try:
+    # the path's K1/K2 inputs (and K2's pivots and R)
+    with recording() as rec:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -1983,9 +2708,6 @@ def mesh_rank(mesh, data, refs, pad_from):
         t2 = time.perf_counter()
         counts = dict(_build.launch_counts)
         traffic = dict(mesh.stats)
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
     peak = torch.cuda.max_memory_allocated() - base
     hss, fac = engine.hss, engine.fac
     out = dict(rank=mesh.rank, ranks=rep.mesh_ranks, cut=hss.cut, levels=hss.levels,
@@ -2600,17 +3322,6 @@ def main() -> int:
         shutil.rmtree(reg_dir, ignore_errors=True)
 
     # ---- 5-7. the paths at paper scale, each with its check ----------- #
-    launchers = ((gkern, "gaussian_block_cuda"), (lops, "laplacian_block_cuda"),
-                 (ckern, "fused_assemble_id_cuda"))
-
-    def moved(obj, where):
-        """A launch's arguments or outputs with every tensor on ``where``."""
-        if isinstance(obj, torch.Tensor):
-            return obj.to(where)
-        if isinstance(obj, tuple):
-            return tuple(moved(o, where) for o in obj)
-        return obj
-
     class OnCard:
         """A path's host-kept records, moved to the card one at a time."""
 
@@ -2622,29 +3333,6 @@ def main() -> int:
 
         def __iter__(self):
             return (moved(item, dev) for item in self.items)
-
-    @contextlib.contextmanager
-    def recording(to_host=False):
-        """Keep the arguments of every K1, K4 and K2 launch made inside the
-        block (and K2's pivots and R): the path's own inputs, which its
-        check runs through the plain versions afterwards.  The launchers
-        themselves run once per call, so each launch still counts once.
-        ``to_host`` keeps host copies, so that the records of a streamed
-        build take no device memory from the working set it measures."""
-        rec = {name: [] for _, name in launchers}
-        saved = [(mod, name, getattr(mod, name)) for mod, name in launchers]
-        for mod, name, fn in saved:
-            def wrapped(*args, _fn=fn, _name=name):
-                out = _fn(*args)
-                kept = (args, out if _name == "fused_assemble_id_cuda" else None)
-                rec[_name].append(moved(kept, "cpu") if to_host else kept)
-                return out
-            setattr(mod, name, wrapped)
-        try:
-            yield rec
-        finally:
-            for mod, name, fn in saved:
-                setattr(mod, name, fn)
 
     def run_path(tag, spec, comp, data, min_acc):
         xtr, ytr, xte, yte = data
@@ -3651,6 +4339,8 @@ def main() -> int:
     family_counts, k5_family_err = lm_family_phases(torch, dev)
     # ---- 25-28. LM training ------------------------------------------- #
     train_counts = train_phases(torch, dev)
+    # ---- 29-33. the mesh LM and the streamed build on a mesh ----------- #
+    lm_mesh_counts, k5_mesh_err = lm_mesh_phases(torch, dev)
 
     # ---- 16. summary -------------------------------------------------- #
     by_path = {"main": main_counts, "lap": lap_counts, "accurate": acc_counts,
@@ -3659,7 +4349,7 @@ def main() -> int:
                "multilevel": ml_counts, "adaptive-rho": rho_counts,
                "stream-resume": resume_counts, "serve": serve_counts,
                "baselines": base_counts, "lm": lm_counts, **family_counts, **train_counts,
-               **mesh_counts}
+               **mesh_counts, **lm_mesh_counts}
 
     def entry(name, source, replaces, path, main_row, rows_all, **extra):
         return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -3687,7 +4377,11 @@ def main() -> int:
         # the serving path's launches, and the training paths' added
         e["launches_path"] = "lm, train, train-moe"
         e["launches"] = sum(by_path[p][e["name"]] for p in ("lm", "train", "train-moe"))
-    lm_kernels[0]["max_abs_err"] = max(lm_kernels[0]["max_abs_err"], k5_family_err)
+    lm_kernels[0]["max_abs_err"] = max(lm_kernels[0]["max_abs_err"], k5_family_err,
+                                       k5_mesh_err)
+    # K5 on each rank of [lm-mesh] (granite at full size, (1, 2) mesh)
+    lm_kernels[0]["launches_lm_mesh_per_rank"] = [
+        by_path[f"lm-mesh-rank{r}"]["flash_attention"] for r in range(2)]
     print(f"[summary] card {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

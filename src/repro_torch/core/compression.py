@@ -579,20 +579,24 @@ def _device_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _stream_fingerprint(n, m, K, spec, params, dtype, device) -> dict:
+def _stream_fingerprint(n, m, K, spec, params, dtype, device, mesh=None, cut=0) -> dict:
     """Identity of a streamed build: a checkpoint of any other problem (data
-    size, tree, kernel, accuracy knobs, dtype, implementation) is never
-    resumed into this one.  ``impl`` names this package and the device
-    type, since the card's kernels and the CPU's plain versions differ in
-    the last bits.  Kept in the manifest's ``extra`` and compared after a
-    JSON round trip, so the values are plain scalars."""
-    return dict(
+    size, tree, kernel, accuracy knobs, dtype, implementation, and under a
+    mesh the rank, the world and the cut) is never resumed into this one.
+    ``impl`` names this package and the device type, since the card's
+    kernels and the CPU's plain versions differ in the last bits.  Kept in
+    the manifest's ``extra`` and compared after a JSON round trip, so the
+    values are plain scalars."""
+    fp = dict(
         kind="hss_streamed_build", n=int(n), leaf_size=int(m), levels=int(K),
         rank=int(params.rank), n_near=int(params.n_near),
         n_far=int(params.n_far), seed=int(params.seed),
         rtol=None if params.rtol is None else float(params.rtol),
         kernel=spec.name, h=float(spec.h), impl=f"repro_torch-{device.type}",
         dtype=str(np.dtype(dtype)))
+    if mesh is not None:
+        fp.update(mesh_rank=int(mesh.rank), mesh_world=int(mesh.size), cut=int(cut))
+    return fp
 
 
 def compress_streamed(
@@ -603,6 +607,7 @@ def compress_streamed(
     stream: StreamParams = StreamParams(),
     on_level=None,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> tuple[HSSMatrix, StreamStats]:
     """Out-of-core HSS build: the data stay on the host, the device sees one
     batch of nodes at a time.
@@ -630,8 +635,23 @@ def compress_streamed(
     and ``counting_kernel_evals`` counts the same total.  ``on_level(i)``
     is called before level i runs (0 is the leaves): the hook of the
     failure drills.  Returns ``(HSSMatrix, StreamStats)``.
+
+    ``mesh``: the node-split build streamed (the reference builds, then
+    places by the node rule; here each rank streams only the batches of
+    the nodes it owns).  Below ``dist.api.shard_levels``' cut a rank walks
+    its own nodes, with the reference's index sets (``compress_sharded``'s
+    host preprocessing); at the cut one gather of the level's skeleton ids
+    and ranks, after which every rank streams the small upper tree.  The
+    result is ``compress_sharded``'s (the rank's part; skeletons equal).
+    Each rank checkpoints into ``ckpt_dir/rank<r>_of_<P>``, its
+    fingerprint naming its rank and world, and the ranks resume at the
+    newest level that all of them hold.  Without a split (no mesh, or P
+    not dividing the leaf count) this is the local streamed build.
     """
+    import os
+
     from repro_torch import ckpt
+    from repro_torch.dist import api as dist_api
     from repro_torch.dist.fault import run_resilient
 
     n, m, K = tree.n, tree.leaf_size, tree.levels
@@ -646,13 +666,20 @@ def compress_streamed(
     dev = torch.device(device)
     r0 = min(params.rank, m)
     adaptive, rtol = params.rtol is not None, params.rtol
+    cut = dist_api.shard_levels(mesh, K)
+    if cut == 0:
+        mesh = None                          # the local build
 
+    lo, hi = dist_api.owned_range(mesh, n_leaf)
     far_idx = _host_proxy_indices(tree, params)          # host, per level
-    leaf_near = _host_leaf_near(tree, params, x_host)
-    prox0 = np.concatenate([leaf_near, far_idx[0]], axis=1)
+    leaf_near = _host_leaf_near(tree, params, x_host, mesh=mesh)
+    prox0 = np.concatenate([leaf_near, far_idx[0][lo:hi]], axis=1)
     x_leaves = x_host.reshape(n_leaf, m, -1)
     stats = StreamStats()
-    fp = _stream_fingerprint(n, m, K, spec, params, x_host.dtype, dev)
+    fp = _stream_fingerprint(n, m, K, spec, params, x_host.dtype, dev, mesh, cut)
+    ckpt_dir = stream.ckpt_dir
+    if ckpt_dir is not None and mesh is not None:
+        ckpt_dir = os.path.join(ckpt_dir, f"rank{mesh.rank}_of_{mesh.size}")
 
     def up(*arrays):
         t0 = time.perf_counter()
@@ -668,19 +695,21 @@ def compress_streamed(
 
     def _run_leaves(state: dict) -> dict:
         bsz = max(1, stream.batch_leaves)
-        d_out = np.empty((n_leaf, m, m), x_host.dtype)
-        u_out = np.empty((n_leaf, m, r0), x_host.dtype)
-        skel_out = np.empty((n_leaf, r0), np.int32)
-        rank_out = np.empty((n_leaf,), np.int32)
-        for s in range(0, n_leaf, bsz):
-            e = min(s + bsz, n_leaf)
-            xl, xp = up(x_leaves[s:e], x_host[prox0[s:e]])
+        n_own = hi - lo
+        d_out = np.empty((n_own, m, m), x_host.dtype)
+        u_out = np.empty((n_own, m, r0), x_host.dtype)
+        skel_out = np.empty((n_own, r0), np.int32)
+        rank_out = np.empty((n_own,), np.int32)
+        for s in range(lo, hi, bsz):
+            e = min(s + bsz, hi)
+            xl, xp = up(x_leaves[s:e], x_host[prox0[s - lo:e - lo]])
             d, u, piv, rks = _stream_leaf_batch(spec, xl, xp, r0, rtol, adaptive)
             stats.peak_stream_bytes = max(stats.peak_stream_bytes,
                                           _device_bytes(xl, xp, d, u, piv, rks))
             stats.n_batches += 1
-            d_out[s:e], u_out[s:e], piv_h, rank_out[s:e] = down(d, u, piv, rks)
-            skel_out[s:e] = piv_h + np.arange(s, e, dtype=np.int32)[:, None] * m
+            a, b = s - lo, e - lo
+            d_out[a:b], u_out[a:b], piv_h, rank_out[a:b] = down(d, u, piv, rks)
+            skel_out[a:b] = piv_h + np.arange(s, e, dtype=np.int32)[:, None] * m
         state = dict(state)
         state.update(d_leaf=d_out, u_leaf=u_out, skel_leaf=skel_out, ranks_leaf=rank_out)
         return state
@@ -690,10 +719,18 @@ def compress_streamed(
         rank_prev = state["ranks_leaf"] if k == 1 else state[f"ranks_{k - 1}"]
         r_prev = skel_prev.shape[1]
         n_k = 2 ** (K - k)
-        cand = skel_prev.reshape(n_k, 2 * r_prev)
+        if mesh is not None and k == cut:
+            # the one gather: level k-1's skeleton ids and ranks (O(r n_k));
+            # the upper tree is every rank's from here
+            skel_prev, rank_prev = (
+                dist_api.all_gather_nodes(torch.from_numpy(np.ascontiguousarray(a)),
+                                          mesh).numpy()
+                for a in (skel_prev, rank_prev))
+        lo_k, hi_k = dist_api.owned_range(mesh, n_k) if k < cut else (0, n_k)
+        cand = skel_prev.reshape(hi_k - lo_k, 2 * r_prev)
         # host-side candidate liveness, the rule of hss.rank_mask
         cm_all = ((np.arange(r_prev)[None, :] < rank_prev[:, None])
-                  .reshape(n_k, 2 * r_prev).astype(x_host.dtype))
+                  .reshape(hi_k - lo_k, 2 * r_prev).astype(x_host.dtype))
         bsz = max(2, stream.batch_leaves - stream.batch_leaves % 2)
         state = dict(state)
         if k == K:                                       # root: B only
@@ -705,18 +742,20 @@ def compress_streamed(
             state[f"b_{k}"], = down(b)
             return state
         r_k = min(params.rank, 2 * r_prev)
-        b_out = np.empty((n_k, r_prev, r_prev), x_host.dtype)
-        t_out = np.empty((n_k, 2 * r_prev, r_k), x_host.dtype)
-        skel_out = np.empty((n_k, r_k), np.int32)
-        rank_out = np.empty((n_k,), np.int32)
-        for s in range(0, n_k, bsz):
-            e = min(s + bsz, n_k)                # n_k, bsz even -> e - s even
+        n_own = hi_k - lo_k
+        b_out = np.empty((n_own, r_prev, r_prev), x_host.dtype)
+        t_out = np.empty((n_own, 2 * r_prev, r_k), x_host.dtype)
+        skel_out = np.empty((n_own, r_k), np.int32)
+        rank_out = np.empty((n_own,), np.int32)
+        for s in range(0, n_own, bsz):
+            e = min(s + bsz, n_own)              # n_own, bsz even -> e - s even
             cand_b = cand[s:e]
             # NEAR proxies: the sibling's candidates, exchanged inside the
             # batch (batches are even-aligned, so both siblings are in it)
             sib = cand_b.reshape(-1, 2, 2 * r_prev)[:, ::-1].reshape(e - s, 2 * r_prev)
+            far = far_idx[k][lo_k + s:lo_k + e]
             cp, xp = up(x_host[cand_b],
-                        np.concatenate([x_host[sib], x_host[far_idx[k][s:e]]], axis=1))
+                        np.concatenate([x_host[sib], x_host[far]], axis=1))
             cm = up(cm_all[s:e])[0] if adaptive else None
             b, piv, t, rks = _stream_level_batch(spec, cp, xp, cm, r_k, rtol, adaptive)
             stats.peak_stream_bytes = max(stats.peak_stream_bytes,
@@ -734,24 +773,38 @@ def compress_streamed(
         return _run_leaves(state) if i == 0 else _run_level(state, i)
 
     def _save(state: dict, completed: int) -> None:
-        if stream.ckpt_dir is None:
+        if ckpt_dir is None:
             return
         t0 = time.perf_counter()
-        ckpt.save_checkpoint(stream.ckpt_dir, state, completed, extra=fp)
+        ckpt.save_checkpoint(ckpt_dir, state, completed, extra=fp)
         stats.ckpt_save_s += time.perf_counter() - t0
         stats.checkpointed_levels = completed
 
     def _restore():
-        if stream.ckpt_dir is None:
+        if ckpt_dir is None:
             return None
-        step = ckpt.latest_step(stream.ckpt_dir)
-        if step is None:
+        step = ckpt.latest_step(ckpt_dir)
+        loaded = None
+        if step is not None:
+            t0 = time.perf_counter()
+            loaded = ckpt.load_checkpoint_arrays(ckpt_dir, step)
+            stats.ckpt_load_s += time.perf_counter() - t0
+            if {key: loaded[2].get(key) for key in fp} != fp:
+                loaded, step = None, None    # someone else's checkpoint
+        if mesh is not None:
+            # the newest level every rank holds (levels are kept, not pruned);
+            # a rank that holds none (+1 here) makes it none
+            mine = torch.tensor([1 if step is None else -step], dtype=torch.int64)
+            agreed = -int(dist_api.all_reduce_max(mine, mesh)[0])
+            if agreed <= 0:
+                return None
+            if agreed != step:
+                t0 = time.perf_counter()
+                loaded = ckpt.load_checkpoint_arrays(ckpt_dir, agreed)
+                stats.ckpt_load_s += time.perf_counter() - t0
+        if loaded is None:
             return None
-        t0 = time.perf_counter()
-        arrays, got, extra = ckpt.load_checkpoint_arrays(stream.ckpt_dir, step)
-        stats.ckpt_load_s += time.perf_counter() - t0
-        if {key: extra.get(key) for key in fp} != fp:
-            return None                      # someone else's checkpoint
+        arrays, got, _ = loaded
         stats.resumed_level = got
         return arrays, got
 
@@ -761,7 +814,7 @@ def compress_streamed(
         torch.cuda.reset_peak_memory_stats(dev)
     state, report = run_resilient(
         K + 1, dict, _step, _save, _restore,
-        ckpt_every=stream.ckpt_every_levels if stream.ckpt_dir else 0,
+        ckpt_every=stream.ckpt_every_levels if ckpt_dir else 0,
         max_restarts=stream.max_restarts)
     stats.restarts = report["restarts"]
     if on_card:
@@ -774,7 +827,7 @@ def compress_streamed(
         def put(a):
             return torch.as_tensor(a, device=dev)
     hss = HSSMatrix(
-        x=put(x_host),
+        x=put(x_host[lo * m:hi * m]),
         d_leaf=put(state["d_leaf"]),
         u_leaf=put(state["u_leaf"]),
         skel_leaf=put(state["skel_leaf"]),
@@ -785,6 +838,8 @@ def compress_streamed(
         leaf_size=m,
         leaf_ranks=put(state["ranks_leaf"]) if adaptive else None,
         level_ranks=tuple(put(state[f"ranks_{k}"]) for k in range(1, K)) if adaptive else (),
+        mesh=mesh,
+        cut=cut if mesh is not None else 0,
     )
     return hss, stats
 

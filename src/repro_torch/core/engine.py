@@ -36,9 +36,10 @@ sum over the samples, and its models hold its rows of the support
 (``EngineModel.mesh``): scoring sums the ranks' partial scores with one
 all-reduce (the reference's ``_mesh_scorer``).  Every rank makes every call.
 The effective mesh (``FitReport.mesh_ranks``) falls back to the local path
-for a rank count that is not a power of two, as the reference's does.  The
-streamed build under a mesh is ROADMAP queue 1 item 13 and raises
-NotImplementedError.
+for a rank count that is not a power of two, as the reference's does.
+With ``stream`` too, each rank streams the batches of the nodes it owns
+(``compression.compress_streamed(mesh=)``), with the same result as the
+resident node-split build.
 """
 from __future__ import annotations
 
@@ -165,9 +166,6 @@ class HSSSVMEngine:
     _mesh: object = None
 
     def __post_init__(self):
-        if self.mesh is not None and self.stream is not None:
-            raise NotImplementedError("the streamed build under a mesh is ROADMAP "
-                                      "queue 1 item 13")
         self.device = torch.device(self.device)
 
     def _min_levels(self) -> int:

@@ -133,14 +133,15 @@ def build(x_perm: np.ndarray, tree: tree_mod.ClusterTree, real: np.ndarray,
     factorizing, so the factorization and every solve run at the detected
     ranks, and the pad block is made exactly the identity
     (``hss.inert_pads``; ``real`` is the tree-order mask).  ``mesh`` takes
-    the node-split build (``compression.compress_sharded``), which falls
-    back to the local one where the tree does not split over it."""
+    the node-split build (``compression.compress_sharded``, or the streamed
+    one's mesh form), which falls back to the local one where the tree
+    does not split over it."""
     sync(device)
     t0 = time.perf_counter()
     sstats = None
     if stream is not None:
         hss, sstats = compression.compress_streamed(x_perm, tree, spec, comp, stream,
-                                                    device=device)
+                                                    device=device, mesh=mesh)
         hss = hss.to(device)       # a host-assembled build factorizes on the device
     elif mesh is not None:
         hss = compression.compress_sharded(x_perm, tree, spec, comp, mesh, device=device)

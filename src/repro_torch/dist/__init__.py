@@ -1,4 +1,6 @@
-"""Fault tolerance: step deadlines, failure drills, the checkpoint-resume loop."""
+"""The mesh and its collectives (``api``), the placement plans
+(``sharding``), the pipeline schedule (``pipeline``), and fault tolerance:
+step deadlines, failure drills, the checkpoint-resume loop."""
 
 from repro_torch.dist.fault import (FailureInjector, InjectedFailure, StepGuard,
                                     StepTimeout, StragglerEvent, run_resilient)

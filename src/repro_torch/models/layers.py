@@ -3,9 +3,20 @@
 Twins of ``repro.models.layers`` as plain functions over explicit parameter
 tuples.  Attention routes to ``kernels/attention/ops.py``: K5 on CUDA
 tensors, its plain version on CPU tensors, with ``chunked_attention``'s
-semantics (the layer window and ``prefix_len`` included).  ``moe_block`` is
-the reference's single-device dispatch (no mesh); the sharded attention and
-the expert-parallel MoE wait for ROADMAP queue 1 item 13.
+semantics (the layer window and ``prefix_len`` included).
+
+Under a mesh (``repro_torch.dist.api.use_mesh``; the parameters sliced by
+``dist.sharding.shard_model``) the blocks run tensor-parallel on "model",
+with Megatron's f and g (``copy_to`` / ``reduce_from``) where the ranks'
+parts meet: ``_attention_sharded`` takes each rank's h/mp query heads and
+the contiguous kv-head slice they read (K5 on those heads), the row-split
+``wo`` ends in one sum over "model"; ``mlp_block`` is column- then
+row-parallel; ``moe_block``'s mesh branch is expert-parallel (each data
+shard routes its own tokens, each model rank computes its run of the
+e_pad padded experts, the combine is one sum over "model" in the compute
+type, aux the mean over the data axes).  A weight that a layer cannot use
+split (the reference's fallbacks) is gathered first: every rank then
+computes the same thing.
 
 bf16 arithmetic follows the reference op by op: ``silu`` is ``x *
 sigmoid(x)``, two roundings, as ``jax.nn.silu`` is written.
@@ -16,6 +27,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.dist import api as dist_api
+from repro_torch.dist.sharding import expert_range, split_on
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention.ref import NEG_INF
 
@@ -64,13 +77,68 @@ def qkv(x: torch.Tensor, p: AttnParams, positions: torch.Tensor, cfg):
     return q, k, v
 
 
+def _attention_sharded(x: torch.Tensor, p: AttnParams, positions: torch.Tensor, cfg,
+                       layer_window: int, prefix_len: int) -> torch.Tensor | None:
+    """Head-parallel attention on the current mesh's "model" axis (the
+    reference's shard_map): rank m computes its h/mp query heads and the
+    contiguous kv heads they read, ``start = m·h_loc·kvh // h`` and
+    ``kv_loc = max(1, h_loc // group)``, through K5, then its rows of
+    ``wo``; one sum over "model" joins the ranks.  None where the reference
+    falls back (mp 1, h % mp, a slice that is not contiguous)."""
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    mp = dist_api.axis_size("model")
+    if mp == 1 or h % mp:
+        return None
+    h_loc = h // mp
+    group = h // kvh                    # q heads per kv head
+    kv_loc = max(1, h_loc // group)
+    if h_loc % kv_loc or not (group % h_loc == 0 or h_loc % group == 0):
+        return None
+    midx = dist_api.axis_index("model")
+    start = (midx * h_loc * kvh) // h
+    b, s, _ = x.shape
+    xin = dist_api.copy_to(x, "model")
+
+    def kv_cols(w):
+        """This rank's kv heads' columns of wk / wv."""
+        if split_on(w, kvh * hd) and w.shape[-1] == kv_loc * hd and start == midx * kv_loc:
+            return w                    # the plan's slice is the rank's kv heads
+        full = (dist_api.gather_shards(w, "model", w.dim() - 1) if split_on(w, kvh * hd)
+                else dist_api.copy_to(w, "model"))
+        return full[:, start * hd:(start + kv_loc) * hd]
+
+    q = apply_rope((xin @ p.wq).reshape(b, s, h_loc, hd), positions, cfg.rope_theta)
+    k = apply_rope((xin @ kv_cols(p.wk)).reshape(b, s, kv_loc, hd), positions,
+                   cfg.rope_theta)
+    v = (xin @ kv_cols(p.wv)).reshape(b, s, kv_loc, hd)
+    out = attn_ops.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=cfg.causal, window=layer_window, softcap=cfg.attn_softcap,
+        prefix_len=prefix_len)
+    return dist_api.reduce_from(out.transpose(1, 2).reshape(b, s, -1) @ p.wo, "model")
+
+
+def _whole(w: torch.Tensor, full: int, dim: int) -> torch.Tensor:
+    """``w`` whole along ``dim`` on every rank (a gather where the mesh
+    split it on "model"; every rank then computes the same thing)."""
+    return dist_api.gather_copies(w, "model", dim % w.dim()) if split_on(w, full, dim) else w
+
+
 def attention_block(x: torch.Tensor, p: AttnParams, positions: torch.Tensor, cfg,
                     layer_window: int = 0, prefix_len: int = 0,
                     kv: tuple | None = None) -> torch.Tensor:
     """proj -> rope -> attention (K5 on the card) -> out proj.
 
     ``kv`` takes projections already made by ``qkv`` (prefill reuses them
-    for its cache)."""
+    for its cache).  Under a mesh: ``_attention_sharded``, or, where it
+    falls back, the whole attention on every rank."""
+    if dist_api.current() is not None:
+        out = _attention_sharded(x, p, positions, cfg, layer_window, prefix_len)
+        if out is not None:
+            return out
+        hq, hk = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+        p = AttnParams(_whole(p.wq, hq, -1), _whole(p.wk, hk, -1), _whole(p.wv, hk, -1),
+                       _whole(p.wo, hq, 0))
     b, s, _ = x.shape
     q, k, v = kv if kv is not None else qkv(x, p, positions, cfg)
     out = attn_ops.flash_attention(
@@ -110,7 +178,13 @@ class MLPParams(NamedTuple):
     w_down: torch.Tensor   # (ff, d)
 
 
-def mlp_block(x: torch.Tensor, p: MLPParams) -> torch.Tensor:
+def mlp_block(x: torch.Tensor, p: MLPParams, ff: int | None = None) -> torch.Tensor:
+    """SwiGLU.  Under a mesh that split its hidden width ``ff`` on "model":
+    column-parallel ``w_gate``/``w_up``, row-parallel ``w_down``, one sum."""
+    if ff is not None and split_on(p.w_gate, ff):
+        xin = dist_api.copy_to(x, "model")
+        h = silu(xin @ p.w_gate) * (xin @ p.w_up)
+        return dist_api.reduce_from(h @ p.w_down, "model")
     return (silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
 
 
@@ -153,29 +227,41 @@ def combine_top_k(gathered: torch.Tensor, order: torch.Tensor,
     return out
 
 
-def _moe_dispatch_chunk(xf: torch.Tensor, p: MoEParams, top_k: int,
-                        cap: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Dispatch, compute and combine for one token chunk xf (T, d).
+def _moe_local_chunk(xf: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
+                     wu: torch.Tensor, wd: torch.Tensor, top_k: int, cap: int,
+                     first: int, end: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch, compute and combine for one token chunk xf (T, d), of the
+    experts ``first`` .. ``end``-1, whose weights wg/wu (n, d, ffe) and wd
+    (n, ffe, d) are given: the reference's ``_moe_local_chunk`` (one rank's
+    part on a mesh; all E experts, the single-device dispatch).
 
-    The reference's slot layout: choices sorted stably by expert, the first
-    ``cap`` of each expert kept at ``expert * cap + rank``, the rest sent to
+    The tokens are routed over every expert.  The reference's slot layout:
+    choices sorted stably by expert, the first ``cap`` of each expert kept
+    at ``expert * cap + rank``, the rest (and other ranks' experts) sent to
     a trash slot that is never read back.  The reference pads E to a
     multiple of ``expert_pad`` (16) and computes the padded experts on zero
-    rows; here only the E real experts are computed and the trash slot
+    rows; here only the real experts are computed and the trash slot
     follows them, which gives the same output.  The expert products take
     the compute-type operands widened to f32 (exact) into an f32 product, as
     ``preferred_element_type=f32`` has them; on the card that needs TF32 off
-    (PyTorch's default).  Nothing here reads a value back to the host, and
-    the combine uses no atomics: on the card two runs give the same bits."""
+    (PyTorch's default).  Returns the partial output (every token's rows of
+    these experts, combined as ``combine_top_k`` does) and the aux loss.
+    On a mesh the gates and the dispatched tokens pass ``copy_to``: each
+    rank's part of their gradient meets in one sum over "model", and the
+    aux term reads the routing probabilities alike on every rank.  Nothing
+    here reads a value back to the host, and the combine uses no atomics:
+    on the card two runs give the same bits."""
     t, d = xf.shape
-    e = p.router.shape[-1]
+    e = router.shape[-1]
+    n = end - first
     dev = xf.device
-    probs = torch.softmax((xf @ p.router).float(), dim=-1)            # (T, E)
+    probs = torch.softmax((xf @ router).float(), dim=-1)               # (T, E)
     # lax.top_k takes the lower expert first among equal gates, and a stable
     # descending sort does too (torch.topk leaves that order unspecified).
     # Under bf16 the router logits are rounded to 8 bits, so equal gates
     # are common.
-    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = torch.sort(dist_api.copy_to(probs, "model"), dim=-1,
+                                     descending=True, stable=True)
     gate_vals, gate_idx = gate_vals[:, :top_k], gate_idx[:, :top_k]
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
 
@@ -190,35 +276,74 @@ def _moe_dispatch_chunk(xf: torch.Tensor, p: MoEParams, top_k: int,
     counts = expert_counts(se, e, torch.long)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(t * top_k, device=dev) - starts[se]
-    keep = pos < cap
-    slot = torch.where(keep, se * cap + pos, torch.full_like(se, e * cap))
+    keep = (se >= first) & (se < end) & (pos < cap)
+    slot = torch.where(keep, (se - first) * cap + pos, torch.full_like(se, n * cap))
 
     # token t's k copies (an expand, whose gradient is a sum, not atomics)
     # in sorted order
-    xs = xf[:, None].expand(t, top_k, d).reshape(t * top_k, d)[order]
-    buf = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=dev)
+    xs = dist_api.copy_to(xf, "model")[:, None].expand(t, top_k, d).reshape(t * top_k, d)
+    xs = xs[order]
+    buf = torch.zeros((n * cap + 1, d), dtype=xf.dtype, device=dev)
     buf[slot] = torch.where(keep[:, None], xs, torch.zeros((), dtype=xf.dtype, device=dev))
-    buf = buf[:-1].reshape(e, cap, d).float()
-    hgate = torch.bmm(buf, p.w_gate.float())
-    hup = torch.bmm(buf, p.w_up.float())
-    hout = torch.bmm(silu(hgate) * hup, p.w_down.float()).to(xf.dtype)
+    buf = buf[:-1].reshape(n, cap, d).float()
+    hgate = torch.bmm(buf, wg.float())
+    hup = torch.bmm(buf, wu.float())
+    hout = torch.bmm(silu(hgate) * hup, wd.float()).to(xf.dtype)
 
-    yflat = torch.cat([hout.reshape(e * cap, d),
-                       torch.zeros((1, d), dtype=xf.dtype, device=dev)])
+    yflat = torch.cat([hout.reshape(n * cap, d), torch.zeros((1, d), dtype=xf.dtype, device=dev)])
     gathered = yflat[slot] * (sw * keep)[:, None].to(xf.dtype)
-    out = combine_top_k(gathered, order, gate_idx)
-    return out, aux
+    return combine_top_k(gathered, order, gate_idx), aux
 
 
-def moe_block(x: torch.Tensor, p: MoEParams, top_k: int,
-              capacity_factor: float) -> tuple[torch.Tensor, torch.Tensor]:
+def _moe_mesh(x: torch.Tensor, p: MoEParams, top_k: int, capacity_factor: float,
+              tokens_per_chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's mesh branch of ``moe_block``: x (B_loc, S, d) is this
+    data shard's; each model rank holds its run of the e_pad padded experts
+    (the real ones: ``sharding.expert_range``, gathered from FSDP by the
+    caller).  Tokens are routed in chunks of the local count
+    (``n_chunk``/``tc``/``cap`` from it), the partial outputs summed over
+    "model" in the compute type, aux averaged over the chunks and the data
+    axes."""
+    b, s, d = x.shape
+    e = p.router.shape[-1]
+    mp = dist_api.axis_size("model")
+    _, first, end = expert_range(e, mp, dist_api.axis_index("model"))
+    if p.w_gate.shape[0] != end - first:
+        raise ValueError(f"rank holds {p.w_gate.shape[0]} experts, the mesh gives it "
+                         f"{end - first}: shard the model with dist.sharding.shard_model")
+    t_loc = b * s
+    n_chunk = max(1, t_loc // tokens_per_chunk)
+    while t_loc % n_chunk:
+        n_chunk += 1
+    tc = t_loc // n_chunk
+    cap = min(int(max(4, (tc * top_k / e) * capacity_factor)), tc)
+    xf = x.reshape(t_loc, d)
+    parts, auxs = [], []
+    for c in range(n_chunk):
+        part, aux = _moe_local_chunk(xf[c * tc:(c + 1) * tc], p.router, p.w_gate, p.w_up,
+                                     p.w_down, top_k, cap, first, end)
+        parts.append(part)
+        auxs.append(aux)
+    partial = parts[0] if n_chunk == 1 else torch.cat(parts)
+    aux = auxs[0] if n_chunk == 1 else torch.stack(auxs).mean()
+    out = dist_api.reduce_from(partial, "model")
+    aux = dist_api.reduce_from(aux, "data") / dist_api.axis_size("data")
+    return out.reshape(b, s, d), aux
+
+
+def moe_block(x: torch.Tensor, p: MoEParams, top_k: int, capacity_factor: float,
+              tokens_per_chunk: int = 65536) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k MoE with capacity over x (B, S, d): (out (B, S, d), aux loss).
 
-    The reference's single-device branch: every token of the batch in one
-    chunk, ``cap = min(int(max(4, T k / E * capacity_factor)), T)``."""
+    Without a mesh, the reference's single-device branch: every token of
+    the batch in one chunk, ``cap = min(int(max(4, T k / E *
+    capacity_factor)), T)``.  Under one, ``_moe_mesh``."""
+    if dist_api.current() is not None:
+        return _moe_mesh(x, p, top_k, capacity_factor, tokens_per_chunk)
     b, s, d = x.shape
     e = p.router.shape[-1]
     t = b * s
     cap = min(int(max(4, (t * top_k / e) * capacity_factor)), t)
-    out, aux = _moe_dispatch_chunk(x.reshape(t, d), p, top_k, cap)
+    out, aux = _moe_local_chunk(x.reshape(t, d), p.router, p.w_gate, p.w_up, p.w_down,
+                                top_k, cap, 0, e)
     return out.reshape(b, s, d), aux

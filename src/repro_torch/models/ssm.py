@@ -6,6 +6,12 @@ through ``kernels/ssd/ops.py`` in both of its branches: K6 on CUDA tensors
 ``ssd_chunked_ref`` on CPU tensors.  A bf16 model hands x, B and C over as
 its bf16 slices of xBC, unwidened.  ``ssm_decode_step`` is plain torch, as
 the reference's is.
+
+Under a mesh the plan splits ``in_proj``'s columns and ``out_proj``'s rows
+on "model", but the block's concatenated ``[z, xBC, dt]`` output does not
+split along head boundaries and its gated norm reduces over all of
+``d_inner``: ``ssm_block`` gathers both first, and every model rank
+computes the whole block (K6 on all heads) on its data shard.
 """
 from __future__ import annotations
 
@@ -15,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd import ops as ssd_ops
-from repro_torch.models.layers import silu
+from repro_torch.models.layers import _whole, silu
 
 
 class SSMParams(NamedTuple):
@@ -57,6 +63,9 @@ def ssm_block(x: torch.Tensor, p: SSMParams, cfg, return_cache: bool = False):
     """Prefill forward. x (B, S, d) -> (B, S, d) [, SSMCache]."""
     bsz, s, _ = x.shape
     h, pdim, n, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+    d_proj = 2 * cfg.d_inner + 2 * g * n + h
+    p = p._replace(in_proj=_whole(p.in_proj, d_proj, -1),
+                   out_proj=_whole(p.out_proj, cfg.d_inner, 0))
     z, xs, b, c, dt = _split_proj(cfg, x @ p.in_proj)
 
     xbc_raw = torch.cat([xs, b, c], dim=-1)              # (B, S, conv_dim)

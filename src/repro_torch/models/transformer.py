@@ -41,6 +41,20 @@ at a time, each chunk checkpointed (the (B, S, V) logits never exist at
 once), plus 0.01 aux.  K5 and K6 run in the forward (and again in each
 recompute); their backward is their plain versions' gradient
 (``kernels/*/ops.py``).
+
+Under a mesh (``with dist_api.use_mesh(mesh): model.loss_fn(batch)``, the
+model sliced by ``dist.sharding.shard_model`` and ``batch`` the rank's rows,
+``sharding.shard_batch``) each cast weight passes
+``sharding.layer_weight`` (FSDP's gather) and the layers run
+tensor-parallel (``layers.py``).  The embedding and the head are
+vocab-parallel where the plan split the vocab (the lookup, the logsumexp
+and the gold logit each end in a sum over "model"), and ``chunked_ce`` is
+the GLOBAL mean: the loss sums and counts are summed over "data" before
+the division.  Each rank's loss is then the global loss, and its backward
+gives the rank's share of the global gradient: ``train.step`` sums them
+over "data".  The mesh is captured where a checkpointed body starts and set
+again inside it, so that a recompute in the backward (on the autograd
+engine's own thread on the card) runs on the same mesh.
 """
 from __future__ import annotations
 
@@ -51,6 +65,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist import api as dist_api, sharding
+from repro_torch.dist.sharding import split_on
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (AttnParams, MLPParams, MoEParams, apply_rope,
@@ -153,6 +169,10 @@ class Model(nn.Module):
         self.frontend_proj = _param((cfg.frontend_dim, d), pd, self.device) if audio else None
         self.mask_emb = _param((d,), pd, self.device) if audio else None
         self._cw = None
+        # set by dist.sharding.shard_model: name -> Placement, and the mesh's sizes
+        self.placement = None
+        self.placement_mesh = None
+        self._pl_of = None
 
     # ------------------------------------------------------------------ #
     # init                                                               #
@@ -228,8 +248,28 @@ class Model(nn.Module):
         return torch.is_grad_enabled() and self.embed.requires_grad
 
     def _cast(self, p):
-        """``p`` in the compute type, inside autograd (a view where it is one)."""
-        return None if p is None else p.to(_dtype(self.cfg.compute_dtype))
+        """``p`` in the compute type, inside autograd (a view where it is one),
+        as the layer computes from it on the mesh (``_placed``)."""
+        return None if p is None else self._placed(p.to(_dtype(self.cfg.compute_dtype)), p)
+
+    def _placed(self, t, p):
+        """``t`` (parameter ``p`` cast) with FSDP's gather where the mesh
+        split ``p`` on the data axes."""
+        if self.placement is None:
+            return t
+        if self._pl_of is None:
+            self._pl_of = {id(q): self.placement[n] for n, q in self.named_parameters()}
+        return sharding.layer_weight(t, self._pl_of[id(p)])
+
+    def _check_mesh(self) -> None:
+        mesh = dist_api.current()
+        if self.placement is not None:
+            if mesh is None or dict(mesh.shape) != self.placement_mesh:
+                raise ValueError(f"the model is sharded for the mesh {self.placement_mesh}; "
+                                 "run it inside dist.api.use_mesh of that mesh")
+        elif mesh is not None and mesh.size > 1:
+            raise ValueError("a model runs on a mesh once dist.sharding.shard_model has "
+                             "given each rank its slices")
 
     def weights(self) -> SimpleNamespace:
         """Every parameter in the compute type (``_cast_tree``).  Serving:
@@ -240,7 +280,8 @@ class Model(nn.Module):
             return self._weights(self._cast, layers=False)
         if self._cw is None:
             cd = _dtype(self.cfg.compute_dtype)
-            self._cw = self._weights(lambda p: None if p is None else p.detach().to(cd))
+            self._cw = self._weights(
+                lambda p: None if p is None else self._placed(p.detach().to(cd), p))
         return self._cw
 
     def _weights(self, c, layers: bool = True) -> SimpleNamespace:
@@ -277,7 +318,16 @@ class Model(nn.Module):
         emb = (w or self.weights()).embed
         # the reference multiplies by a weakly typed scalar: it is rounded
         # to the compute type first
-        return emb[tokens] * torch.tensor(self.cfg.d_model ** 0.5, dtype=emb.dtype)
+        scale = torch.tensor(self.cfg.d_model ** 0.5, dtype=emb.dtype)
+        if split_on(emb, self.cfg.vocab, 0):
+            # vocab-parallel: each rank looks up the tokens of its rows
+            v_loc = emb.shape[0]
+            ids = tokens - dist_api.axis_index("model") * v_loc
+            mine = ((ids >= 0) & (ids < v_loc))[..., None]
+            rows = torch.where(mine, emb[ids.clamp(0, v_loc - 1)],
+                               torch.zeros((), dtype=emb.dtype, device=emb.device))
+            return dist_api.reduce_from(rows, "model") * scale
+        return emb[tokens] * scale
 
     def embed_inputs(self, batch: dict) -> tuple[torch.Tensor, int]:
         """(x (B, S, d), prefix_len) through the modality frontend: audio
@@ -296,11 +346,22 @@ class Model(nn.Module):
                     cfg.n_prefix_tokens)
         return self.embed_tokens(batch["tokens"], w), 0
 
-    def logits(self, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """x @ head in f32 with the final softcap: the rank's vocab columns
+        where the plan split the head."""
         cfg = self.cfg
-        out = (x @ self.weights().head).float()
+        head = self.weights().head
+        if split_on(head, cfg.vocab):
+            x = dist_api.copy_to(x, "model")
+        out = (x @ head).float()
         if cfg.final_softcap > 0:
             out = cfg.final_softcap * torch.tanh(out / cfg.final_softcap)
+        return out
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        out = self._head(x)
+        if out.shape[-1] != self.cfg.vocab:
+            out = dist_api.gather_copies(out, "model", out.dim() - 1)
         return out
 
     # ------------------------------------------------------------------ #
@@ -321,10 +382,11 @@ class Model(nn.Module):
     def _ffn(self, h, blk):
         """The block's feed-forward on its normed input: MLP, or MoE plus
         arctic's parallel dense MLP.  Returns (out, MoE's aux loss or None)."""
+        cfg = self.cfg
         if blk.moe is None:
-            return mlp_block(h, blk.mlp), None
-        out, aux = moe_block(h, blk.moe, self.cfg.top_k, self.cfg.capacity_factor)
-        return (out if blk.mlp is None else out + mlp_block(h, blk.mlp)), aux
+            return mlp_block(h, blk.mlp, cfg.d_ff), None
+        out, aux = moe_block(h, blk.moe, cfg.top_k, cfg.capacity_factor)
+        return (out if blk.mlp is None else out + mlp_block(h, blk.mlp, cfg.moe_dense_ff)), aux
 
     def _attn_block(self, x, blk, positions, window, prefix_len, kv_out=None):
         """Attention (K5 on the card) and feed-forward with their residuals:
@@ -332,11 +394,13 @@ class Model(nn.Module):
         (prefill's cache)."""
         cfg = self.cfg
         h = rms_norm(x, blk.ln1, cfg.norm_eps)
-        q, k, v = qkv(h, blk.attn, positions, cfg)
-        if kv_out is not None:
+        if kv_out is None:
+            x = x + attention_block(h, blk.attn, positions, cfg, window, prefix_len)
+        else:
+            q, k, v = qkv(h, blk.attn, positions, cfg)
             kv_out.extend((k, v))
-        x = x + attention_block(h, blk.attn, positions, cfg, window, prefix_len,
-                                kv=(q, k, v))
+            x = x + attention_block(h, blk.attn, positions, cfg, window, prefix_len,
+                                    kv=(q, k, v))
         out, aux = self._ffn(rms_norm(x, blk.ln2, cfg.norm_eps), blk)
         return x + out, aux
 
@@ -368,15 +432,16 @@ class Model(nn.Module):
                 cache["shared_k"][app, :, :s], cache["shared_v"][app, :, :s] = kv
         return x, None
 
-    def _train_layer(self, idx, x, positions, prefix_len):
-        """Layer ``idx`` under autograd: its weights (and the shared block's
-        where it applies) cast here, so that a checkpoint recomputes them.
-        Returns (x, aux) with aux a tensor (0 without MoE)."""
-        layer = self.layers[idx]
-        lw = self._layer_weights(layer, self._cast)
-        shared = (self._block_weights(self.shared, self._cast)
-                  if self._applies_shared(idx) else None)
-        x, aux = self._layer(idx, lw, shared, x, positions, prefix_len)
+    def _train_layer(self, idx, x, positions, prefix_len, mesh=None):
+        """Layer ``idx`` under autograd, on ``mesh``: its weights (and the
+        shared block's where it applies) cast here, so that a checkpoint
+        recomputes them.  Returns (x, aux) with aux a tensor (0 without MoE)."""
+        with dist_api.use_mesh(mesh):
+            layer = self.layers[idx]
+            lw = self._layer_weights(layer, self._cast)
+            shared = (self._block_weights(self.shared, self._cast)
+                      if self._applies_shared(idx) else None)
+            x, aux = self._layer(idx, lw, shared, x, positions, prefix_len)
         return x, torch.zeros((), dtype=torch.float32, device=x.device) if aux is None else aux
 
     def backbone(self, x: torch.Tensor, positions: torch.Tensor, prefix_len: int = 0,
@@ -387,16 +452,18 @@ class Model(nn.Module):
         (see ``trainable``), each layer casts its own weights and, under
         ``remat == "block"``, runs under one activation checkpoint."""
         cfg = self.cfg
+        self._check_mesh()
+        mesh = dist_api.current()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self._differentiated():
             if cache is not None:
                 raise ValueError("prefill fills a cache without gradients")
             for idx in range(cfg.n_layers):
                 if cfg.remat == "block":
-                    x, a = checkpoint(self._train_layer, idx, x, positions, prefix_len,
+                    x, a = checkpoint(self._train_layer, idx, x, positions, prefix_len, mesh,
                                       use_reentrant=False)
                 else:
-                    x, a = self._train_layer(idx, x, positions, prefix_len)
+                    x, a = self._train_layer(idx, x, positions, prefix_len, mesh)
                 aux = aux + a
             return rms_norm(x, self.weights().final_norm, cfg.norm_eps), aux
         w = self.weights()
@@ -417,13 +484,28 @@ class Model(nn.Module):
     # ------------------------------------------------------------------ #
     # losses                                                             #
     # ------------------------------------------------------------------ #
-    def _chunk_loss(self, h: torch.Tensor, labels: torch.Tensor):
-        """(sum of -log p(label), count) over one chunk; label -1 ignored."""
-        logits = self.logits(h)                                   # (B, cs, V) f32
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
-        valid = (labels >= 0).float()
-        return torch.sum((logz - gold) * valid), torch.sum(valid)
+    def _chunk_loss(self, h: torch.Tensor, labels: torch.Tensor, mesh=None):
+        """(sum of -log p(label), count) over one chunk; label -1 ignored.
+        Where the head is vocab-split on ``mesh``: the max, the sum of exps
+        and the gold logit over the rank's columns, each joined over "model"."""
+        with dist_api.use_mesh(mesh):
+            logits = self._head(h)                                # (B, cs, V_loc) f32
+            valid = (labels >= 0).float()
+            lab = labels.clamp(min=0)
+            v_loc = logits.shape[-1]
+            if v_loc == self.cfg.vocab:
+                logz = torch.logsumexp(logits, dim=-1)
+                gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+            else:
+                m = dist_api.pmax(logits.detach().amax(-1), "model")
+                sumexp = dist_api.reduce_from(torch.exp(logits - m[..., None]).sum(-1), "model")
+                logz = m + torch.log(sumexp)
+                ids = lab - dist_api.axis_index("model") * v_loc
+                mine = (ids >= 0) & (ids < v_loc)
+                gold = torch.gather(logits, -1, ids.clamp(0, v_loc - 1)[..., None])[..., 0]
+                gold = dist_api.reduce_from(torch.where(mine, gold, torch.zeros_like(gold)),
+                                            "model")
+            return torch.sum((logz - gold) * valid), torch.sum(valid)
 
     def chunked_ce(self, hidden: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """Mean cross-entropy over the labels >= 0 (-1: padding or prefix),
@@ -434,15 +516,18 @@ class Model(nn.Module):
         cs = min(self.cfg.loss_chunk, s)
         while s % cs:
             cs -= 1
+        mesh = dist_api.current()
         tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
         cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
         for c0 in range(0, s, cs):
             h, lab = hidden[:, c0:c0 + cs], labels[:, c0:c0 + cs]
             if self._differentiated():
-                dl, dc = checkpoint(self._chunk_loss, h, lab, use_reentrant=False)
+                dl, dc = checkpoint(self._chunk_loss, h, lab, mesh, use_reentrant=False)
             else:
-                dl, dc = self._chunk_loss(h, lab)
+                dl, dc = self._chunk_loss(h, lab, mesh)
             tot, cnt = tot + dl, cnt + dc
+        # the global mean: sums and counts over the data shards, then divided
+        tot, cnt = dist_api.reduce_from(tot, "data"), dist_api.psum(cnt, "data")
         return tot / torch.clamp(cnt, min=1.0)
 
     def loss_fn(self, batch: dict) -> tuple[torch.Tensor, dict]:
@@ -488,10 +573,17 @@ class Model(nn.Module):
             cache["shared_v"] = torch.zeros(shape, dtype=cd, device=dev)
         return cache
 
+    def _serving(self) -> None:
+        if self.placement is not None:
+            raise NotImplementedError("prefill and decode of a model sharded over a mesh "
+                                      "(cache_shardings' placement) are ROADMAP queue 1 "
+                                      "item 13's rest")
+
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
         """One decode step. tokens (B, 1) -> logits (B, V); the cache is
         updated in place and returned."""
+        self._serving()
         cfg = self.cfg
         w = self.weights()
         x = self.embed_tokens(tokens)                     # (B, 1, d)
@@ -544,6 +636,7 @@ class Model(nn.Module):
         """Process a full prompt (vlm: patches, then text); returns the last
         position's logits (B, V) and the cache, ``pos`` = the prompt's length
         with its prefix."""
+        self._serving()
         x, prefix_len = self.embed_inputs(batch)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)

@@ -9,6 +9,11 @@ the Adam step, a different rounding.  AdamW's moments may be kept in bf16
 second moments (row/col).  The functions return new state and new
 parameters and leave their arguments as they were; ``adamw_update_``
 updates a model's live parameters and the state in place, leaf by leaf.
+
+On a mesh each rank holds its slices of the parameters, gradients and
+moments, and updates them alone; the clip needs the norm over every rank's
+slices (``global_norm`` with ``counted`` and ``mesh``), which
+``train.step`` hands to ``adamw_update_``.
 """
 from __future__ import annotations
 
@@ -16,6 +21,8 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.dist import api as dist_api
 
 Tree = dict
 
@@ -51,21 +58,32 @@ def adamw_init(params: Tree, cfg: AdamWConfig = AdamWConfig()) -> AdamWState:
                       m=zeros(), v=zeros())
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
+def global_norm(tree: Tree, counted: dict | None = None, mesh=None) -> torch.Tensor:
     """sqrt of the sum over the leaves, in order, of each leaf's sum of
-    squares in f32."""
+    squares in f32.  On a ``mesh``: each rank sums the leaves that
+    ``counted`` names (its own slices, and one copy of each replicated
+    leaf: ``dist.sharding.counted``), and the partial sums are summed over
+    every rank."""
     total = None
-    for leaf in tree.values():
+    for k, leaf in tree.items():
+        if counted is not None and not counted[k]:
+            continue
         sq = torch.sum(leaf.float() ** 2)
         total = sq if total is None else total + sq
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32, device=_device(tree))
+    if mesh is not None:
+        total = dist_api.psum(total, dist_api.ALL, mesh)
     return torch.sqrt(total)
 
 
-def _adamw_prologue(grads: Tree, state: AdamWState, cfg: AdamWConfig):
-    """(step + 1, the clip scale, the two bias corrections), all on the device."""
+def _adamw_prologue(grads: Tree, state: AdamWState, cfg: AdamWConfig, norm=None):
+    """(step + 1, the clip scale, the two bias corrections), all on the device;
+    ``norm`` the gradients' global norm where the caller has it."""
     step = state.step + 1
     stepf = step.float()
-    scale = torch.clamp(cfg.grad_clip / (global_norm(grads) + 1e-9), max=1.0)
+    norm = global_norm(grads) if norm is None else norm
+    scale = torch.clamp(cfg.grad_clip / (norm + 1e-9), max=1.0)
     one = torch.ones((), dtype=torch.float32, device=stepf.device)
     return step, scale, 1 - (one * cfg.b1) ** stepf, 1 - (one * cfg.b2) ** stepf
 
@@ -84,14 +102,16 @@ def _adamw_leaf(g, m, v, p, scale, bc1, bc2, cfg: AdamWConfig):
 
 @torch.no_grad()
 def adamw_update_(grads: Tree, state: AdamWState, params: Tree,
-                  cfg: AdamWConfig = AdamWConfig()) -> AdamWState:
+                  cfg: AdamWConfig = AdamWConfig(), norm=None) -> AdamWState:
     """One AdamW step, in place: the gradients clipped by their global norm,
     then per leaf ``delta = mhat / (sqrt(vhat) + eps) + wd p`` and ``p - lr
     delta``, all in f32.  Each parameter is overwritten and each moment
     replaced in ``state``'s dicts as soon as it is computed, so the step
     needs one leaf's temporaries, not a second copy of the parameters and
-    moments.  Returns the state with the new step count."""
-    step, scale, bc1, bc2 = _adamw_prologue(grads, state, cfg)
+    moments.  ``norm``: the gradients' global norm, where the caller has it
+    (on a mesh: over every rank's slices).  Returns the state with the new
+    step count."""
+    step, scale, bc1, bc2 = _adamw_prologue(grads, state, cfg, norm)
     for k, p in params.items():
         p_new, state.m[k], state.v[k] = _adamw_leaf(grads[k], state.m[k], state.v[k], p,
                                                     scale, bc1, bc2, cfg)

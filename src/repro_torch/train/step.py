@@ -4,11 +4,19 @@
 place: the reference's step is a pure function of (params, opt_state,
 batch), here the parameters live in the ``Model``.  The gradients of the
 step stay on the parameters' ``.grad`` (in their type) until the next step.
+
+On a mesh (the model sliced by ``dist.sharding.shard_model``, the step
+called inside ``dist.api.use_mesh`` with the rank's rows of the batch)
+each rank's backward gives its share of the global loss's gradient: the
+step sums them over "data" (where FSDP's gather has not already
+reduce-scattered them), takes the global norm over every rank's slices,
+and AdamW updates the rank's slices.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import api as dist_api, sharding
 from repro_torch.models.transformer import Model
 from repro_torch.train import optim
 
@@ -69,8 +77,14 @@ def make_train_step(model: Model, opt_cfg: optim.AdamWConfig | None = None,
             grads = {k: g * (1.0 / n) for k, g in grads.items()}
             loss = loss * (1.0 / n)
             metrics = {"ce": loss, "aux": torch.zeros((), device=model.device)}
-        grad_norm = optim.global_norm(grads)
-        opt_state = optim.adamw_update_(grads, opt_state, params, opt_cfg)
+        if model.placement is not None:
+            mesh = dist_api.current()
+            grads = sharding.sync_grads(grads, model, mesh)
+            grad_norm = optim.global_norm(
+                grads, {k: sharding.counted(model.placement[k], mesh) for k in grads}, mesh)
+        else:
+            grad_norm = optim.global_norm(grads)
+        opt_state = optim.adamw_update_(grads, opt_state, params, opt_cfg, grad_norm)
         model.weights_changed()
         for k, p in params.items():
             p.grad = grads[k].to(p.dtype)

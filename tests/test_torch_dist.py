@@ -152,6 +152,33 @@ def test_split_build_factorization_and_solve_match_the_local_ones(problem, world
     _close(from_whole, loc["solve"], 1e-6)
 
 
+@pytest.mark.parametrize("case", [0, 1], ids=["fixed", "adaptive"])
+def test_streamed_build_on_the_mesh_equals_the_split_build(world, case):
+    """``compress_streamed(mesh=)`` at 3 nodes a batch: on every rank, every
+    array equal to ``compress_sharded``'s (skeleton ids and ranks exactly,
+    the rest to 1e-6 of each array's largest entry), at the same cut; a
+    failure at the cut level restarts from the rank's own checkpoint
+    directory and gives the same arrays bit for bit."""
+    p_, outs = world
+    for r, o in enumerate(outs):
+        s = o["cases"][case]["streamed"]
+        assert s["cut"] == s["sharded_cut"] > 0
+        assert set(s["hss"]) == set(s["sharded"])
+        for name, want in s["sharded"].items():
+            got = s["hss"][name]
+            for g, w in zip(got if isinstance(got, list) else [got],
+                            want if isinstance(want, list) else [want]):
+                if w.dtype in (torch.int32, torch.int64):
+                    assert torch.equal(g, w), name
+                else:
+                    _close(g, w, 1e-6)
+            for g, w in zip(s["resumed"][name] if isinstance(got, list) else [s["resumed"][name]],
+                            got if isinstance(got, list) else [got]):
+                assert torch.equal(g, w), name
+        assert s["restarts"] == 1 and s["resumed_level"] == s["cut"]
+        assert s["ckpt_dirs"] == [f"rank{r}_of_{p_}"]
+
+
 def test_fallback_and_traffic(problem, world):
     """2 leaves over 2 or 4 ranks: the local build on every rank.  The
     split build gathered once at the cut (skeleton points, ids, ranks) and

@@ -157,6 +157,21 @@ def test_mesh_multilevel_and_adaptive_rho_match_the_local_port(runs, size):
     assert all(r["adaptive"]["rho"] == ref["adaptive"]["rho"] for r in res)
 
 
+@pytest.mark.parametrize("size", [2, 4, 3])
+def test_mesh_streamed_engine_matches_the_resident_one(runs, size):
+    """``HSSSVMEngine(mesh=, stream=)``: each rank streams its own nodes'
+    batches (3 ranks: the local streamed build on every rank); after the
+    same warm-started grid the duals equal the resident mesh engine's to
+    1e-4 of C and the predictions (so the accuracy) the JAX local engine's."""
+    ref, outs = runs
+    res = outs[size]
+    for r in res:
+        s = r["streamed"]
+        assert s["mesh_ranks"] == r["mesh_ranks"] and s["batches"] > 0
+        _close(s["z_y"].numpy(), r["z_y"][-1].numpy(), 1e-4, scale=KNOBS[-1])
+        np.testing.assert_array_equal(s["preds"].numpy(), ref["preds"][-1])
+
+
 def test_three_ranks_fall_back_to_the_local_path(runs):
     """A rank count that is not a power of two: every rank runs the local
     engine (mesh_ranks 1, all 1024 rows), with the local engine's numbers."""

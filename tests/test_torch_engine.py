@@ -22,7 +22,6 @@ from repro_torch import convert
 from repro_torch.core import admm as tadmm
 from repro_torch.core import svm as tsvm
 from repro_torch.core.compression import CompressionParams as TParams
-from repro_torch.core.compression import StreamParams as TStreamParams
 from repro_torch.core.engine import HSSSVMEngine as TEngine
 from repro_torch.core.kernelfn import KernelSpec as TSpec
 
@@ -198,10 +197,23 @@ def test_paper_beta_identical():
         assert tadmm.paper_beta(d) == jadmm.paper_beta(d)
 
 
-@pytest.mark.parametrize("make", [
-    # the streamed build under a mesh (the mesh itself is ported)
-    lambda: TEngine(spec=TSpec(), mesh=object(), stream=TStreamParams(), device="cpu"),
-], ids=["mesh"])
+def _prefill_on_a_mesh():
+    """Prefill of an LM sharded over a (one-rank) mesh: mesh serving (the
+    decode caches' placement) is not ported; mesh training and the SVM
+    engine's streamed build under a mesh are."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist import api as dist_api, sharding
+    from repro_torch.models.transformer import Model
+
+    cfg = get_config("gemma2-9b").reduced(compute_dtype="float32")
+    with dist_api.process_group_mesh("cpu") as mesh:
+        model = sharding.shard_model(
+            Model(cfg, device="cpu").init(torch.Generator().manual_seed(0)), mesh)
+        with dist_api.use_mesh(mesh):
+            model.prefill({"tokens": torch.zeros((1, 8), dtype=torch.long)}, 16)
+
+
+@pytest.mark.parametrize("make", [_prefill_on_a_mesh], ids=["mesh"])
 def test_calls_outside_the_slice_raise(make):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         make()

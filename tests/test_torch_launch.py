@@ -80,10 +80,22 @@ def test_train_svm_grid_matches_the_jax_engine():
 
 
 def test_paths_not_ported_raise():
-    from repro_torch.train import grad_compress
+    """The serve steps of an LM sharded over a mesh (decode on a mesh is not
+    ported; the compressed all-reduce now is: tests/test_torch_lm_mesh.py)."""
+    import torch
 
-    with pytest.raises(NotImplementedError, match="item 13"):
-        grad_compress.make_compressed_allreduce(None)
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist import api as dist_api, sharding
+    from repro_torch.models.transformer import Model
+    from repro_torch.train.step import make_serve_steps
+
+    cfg = get_config("zamba2-1.2b").reduced(compute_dtype="float32")
+    with dist_api.process_group_mesh("cpu") as mesh:
+        model = sharding.shard_model(
+            Model(cfg, device="cpu").init(torch.Generator().manual_seed(0)), mesh)
+        _, decode = make_serve_steps(model, 16)
+        with dist_api.use_mesh(mesh), pytest.raises(NotImplementedError, match="item 13"):
+            decode(model.cache_init(1, 16), torch.zeros((1, 1), dtype=torch.long))
 
 
 def test_entry_points_default_to_the_card():

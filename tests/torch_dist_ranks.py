@@ -103,7 +103,11 @@ def hss_stack(mesh, x_perm, tree, comps, beta, rhs, small, grid):
     build whose leaf count the rank count does not divide.  ``grid`` =
     (y (n,), ys (P, n), pmask (P, n), C values): the C-grid functions of
     ``core/distributed.py`` on the first case's split factorization and on
-    its whole one.  The first rank also returns ``local_references``."""
+    its whole one.  Each case also streams the build on the mesh
+    (``compress_streamed(mesh=)``, 3 nodes a batch) beside
+    ``compress_sharded``'s, uninterrupted and through a failure at the cut
+    restarted from its checkpoints.  The first rank also returns
+    ``local_references``."""
     from repro_torch.core import distributed
     coll = collectives(mesh)
     mesh.reset_stats()
@@ -127,6 +131,7 @@ def hss_stack(mesh, x_perm, tree, comps, beta, rhs, small, grid):
         whole, _ = hss_mod.shrink_report(whole)
         fac = factorization.factorize_sharded(whole, beta, mesh)
         res["from_whole"] = dict(fac=_arrays(fac), solve=factorization.hss_solve_mat(fac, rows))
+        res["streamed"] = streamed_on_mesh(mesh, x_perm, tree, spec, comp)
         out.append(res)
         if len(out) == 1:
             y, ys, pmask, cs = grid
@@ -145,6 +150,28 @@ def hss_stack(mesh, x_perm, tree, comps, beta, rhs, small, grid):
                  else None)
     return dict(cases=out, collectives=coll, fallback_mesh=fallback.mesh is None,
                 fallback=_arrays(fallback), stats=dict(mesh.stats), reference=reference)
+
+
+def streamed_on_mesh(mesh, x_perm, tree, spec, comp):
+    """The streamed build on ``mesh`` and ``compress_sharded``'s, unshrunk;
+    then the streamed build with checkpoints and a failure at the cut
+    level, restarted in process."""
+    import tempfile
+
+    from repro_torch.dist.fault import FailureInjector
+
+    sharded = compression.compress_sharded(x_perm, tree, spec, comp, mesh, device="cpu")
+    params = compression.StreamParams(batch_leaves=3)
+    st, stats = compression.compress_streamed(x_perm, tree, spec, comp, params, mesh=mesh,
+                                              device="cpu")
+    with tempfile.TemporaryDirectory() as d:
+        again, st2 = compression.compress_streamed(
+            x_perm, tree, spec, comp, dataclasses.replace(params, ckpt_dir=d),
+            on_level=FailureInjector(fail_at=(sharded.cut,)).check, mesh=mesh, device="cpu")
+        on_disk = sorted(p.name for p in __import__("pathlib").Path(d).iterdir())
+    return dict(hss=_arrays(st), cut=st.cut, sharded=_arrays(sharded),
+                sharded_cut=sharded.cut, batches=stats.n_batches, resumed=_arrays(again),
+                restarts=st2.restarts, resumed_level=st2.resumed_level, ckpt_dirs=on_disk)
 
 
 def local_references(x_perm, tree, comps, beta, rhs, grid):
@@ -224,6 +251,14 @@ def engine_cases(mesh, cases, xte, root):
             m, _ = eng.train(1.0)
             res["adaptive"] = dict(z_y=m.z_y, iters=eng.report.iters_run,
                                    rho=(eng.report.rho_final, eng.report.rho_rescales))
+            # the same engine with the streamed build (2 nodes a batch)
+            from repro_torch.core.compression import StreamParams
+            st = HSSSVMEngine(device="cpu", mesh=mesh, stream=StreamParams(batch_leaves=2),
+                              **kw)
+            rep = st.prepare(*prep)
+            m = st.train_grid(knobs)[-1]
+            res["streamed"] = dict(mesh_ranks=rep.mesh_ranks, batches=rep.stream_batches,
+                                   z_y=m.z_y, preds=m.predict(xte[name]))
         if name == "gp":
             res["log_marginal"] = eng.log_marginal(knobs[0], num_iters=20,
                                                    probes=torch.as_tensor(extra["probes"]))
