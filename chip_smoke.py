@@ -191,6 +191,29 @@ Phases, each printed on its own lines, none of them allowed to fail:
  33. collectives — in the same 4 processes: the compressed all-reduce of 4
                  x 2^20 f32 against the plain sum, pipeline_forward on a
                  4-stage mesh against the stages in sequence;
+ 34. lm-mesh-serve — on the two [lm-mesh] processes, granite-moe-3b-a800m
+                 at full size served sharded ((1, 2): prefill of 4 x 1024,
+                 16 greedy tokens; K5 32 a rank on its 12 heads, its cache
+                 4 of 8 kv heads) against this process: bf16 prefill logits
+                 and decode steps whose own routing is equal, f32 compute
+                 teacher-forced at full depth on every step, the first 4
+                 layers alone; per rank ms,
+                 collectives, peak and cache bytes, the bytes held against
+                 launch.specs' prediction; every K5 launch replayed;
+ 35. lm-mesh-serve-families — on the same ranks, gemma2-9b (prompt past
+                 its window, softcap) and paligemma-3b (one kv head, the
+                 cache replicated) at full width, 2 layers, teacher-forced
+                 against this process;
+ 36. lm-mesh-serve-hybrid — on the four [lm-mesh-fsdp] processes ((2, 2)),
+                 zamba2-1.2b at full size, 4 x 1024 and 16 tokens
+                 teacher-forced against this process: K6 38 and K5 6 a rank
+                 (16 of 32 heads), ssm_state 32 of 64 heads, every launch
+                 replayed; then f32 compute, 4 steps, at 1e-4;
+ 37. dryrun    — python -m repro_torch.launch.dryrun on the host for
+                 granite prefill_32k and decode_32k, llama3-405b train_4k
+                 (16 x 16) and the SVM cell (2 x 16 x 16), four processes
+                 started after phase 36: memory,
+                 FLOPs, collectives, roofline terms of one rank's step;
  24. summary   — one JSON line {"kernels": [...]}, then the last line
                  {"ok": true, "device": {...}}.
 Every path runs with the launch counts set to 0 just before it, and checks
@@ -204,6 +227,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import importlib.util
 import json
 import math
@@ -216,6 +240,14 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    # the H100's data-sheet rates and K5's / K6's work counts, shared with
+    # the dry run (repro_torch.launch.dryrun)
+    from repro_torch.kernels.cost import (BF16_TC_FLOP_PER_S, F32_FLOP_PER_S,
+                                          HBM_BYTES_PER_S, SFU_PER_S, k5_cost, k6_cost)
+except ImportError:
+    sys.exit("chip_smoke: the repro_torch package is not beside this script")
 
 # The repository's own paper-scale configuration (benchmarks/bench_svm.py,
 # svm_scaling/n1000000), resident and at fixed rank.
@@ -303,15 +335,9 @@ SCORE_RTOL = 1e-4
 
 HOLD_CYCLES = 100_000_000    # ~50 ms of spinning at the H100's ~2 GHz clock
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-# Non-FMA f32 operations (an add, a subtract) retire at half the FMA flop
-# rate; exp runs on the special-function units, 16 results per clock per SM
-# (CUDA programming guide, compute capability 9.0) on 132 SMs at the
-# 1.98 GHz that the 67 TFLOP/s figure implies.
+# H100 SXM peaks: repro_torch.kernels.cost's data-sheet rates.  Non-FMA f32
+# operations (an add, a subtract) retire at half the FMA flop rate.
 F32_OP_PER_S = F32_FLOP_PER_S / 2
-SFU_PER_S = 16 * 132 * 1.98e9
 
 # Tolerances of kernel against plain version, with their reasons.
 K1_ATOL = 2e-5     # K in [0, 1]; f32 norm/cross sums in another order move sq
@@ -927,7 +953,6 @@ def baselines_phase(torch, dev, recording):
 # ---------------------------------------------------------------------- #
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "zamba2-1.2b", 4, 1024, 32
 LM_SMALL_LAYERS, LM_SMALL_PROMPT, LM_SMALL_STEPS = 6, 256, 4
-BF16_TC_FLOP_PER_S = 989e12     # dense bf16 tensor-core rate (data sheet)
 K5_F32_RTOL = 5e-5   # f32 products summed in another order, of the largest output
 # bf16: kernel and plain version round the same f32 result to bf16, so an
 # output may differ by one rounding step where their two f32 values straddle
@@ -983,51 +1008,6 @@ K6_CASES = [
     ("mamba2-780m f32", (LM_BATCH, LM_PROMPT, 48, 64, 1, 128, 128), 20, "float32"),
 ]
 SDPA_RTOL = 2.0 ** -5   # SDPA rounds P to bf16 before P·V; the reference keeps it f32
-
-
-def k5_cost(b, h, kvh, s, d, elem_bytes, pairs):
-    """Bytes: q, k, v read once, out written once.  Operations on the
-    ``pairs`` visible (query, key) pairs of each head, 2D flops a pair for
-    QKᵀ and 2D for P·V.  bf16 operands: QKᵀ on the tensor cores at the dense
-    bf16 rate (their products are exact in f32), and P·V with the
-    reference's f32 P as the least the card can do it, two bf16 products
-    P_hi·V + P_lo·V on the tensor cores (6D flops a pair in all).  f32
-    operands: both products at the f32 rate (no TF32).  One exp a pair at
-    the SFU rate.  The units run side by side: the longest counts."""
-    bytes_moved = elem_bytes * (2 * b * h * s * d + 2 * b * kvh * s * d)
-    product = 2.0 * d * pairs * b * h
-    tensor = 3 * product if elem_bytes == 2 else 0.0
-    f32 = 0.0 if elem_bytes == 2 else 2 * product
-    t_ops = max(tensor / BF16_TC_FLOP_PER_S, f32 / F32_FLOP_PER_S,
-                pairs * b * h / SFU_PER_S) * 1e3
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def k6_cost(b, s, h, p, g, n, q, elem_bytes):
-    """Bytes: x, B and C read once in their type (``elem_bytes``), dt, a and D
-    in f32, y and the final state written once in f32.  Operations on each
-    chunk's lower triangle of Q(Q+1)/2 pairs: C·Bᵀ once per (b, chunk,
-    group), 2N flops a pair (it does not depend on the head); per head
-    scores·(dt x), 2P a pair, and C·h and the state update, 2QNP each.  bf16:
-    on the tensor cores at the dense bf16 rate, C·Bᵀ as one product (bf16
-    values, exact in f32) and the other three as two each (their f32 factor
-    as hi + lo, the least way to the reference's f32 numerics).  f32: at the
-    f32 rate (no TF32).  Exps at the SFU rate: the gate a pair, w and
-    exp(la) a position.  The units run side by side: the longest counts."""
-    heads = float(b * h * (s // q))
-    tri = q * (q + 1) // 2
-    bytes_moved = (elem_bytes * (b * s * h * p + 2.0 * b * s * g * n)
-                   + 4.0 * (b * s * h + 2 * h + b * s * h * p + b * h * n * p))
-    cb = 2.0 * n * tri * b * (s // q) * g
-    per_head = 2.0 * p * tri + 4.0 * q * n * p
-    if elem_bytes == 2:
-        t_prod = (cb + 2 * per_head * heads) / BF16_TC_FLOP_PER_S
-    else:
-        t_prod = (cb + per_head * heads) / F32_FLOP_PER_S
-    t_ops = max(t_prod, heads * (tri + 2 * q) / SFU_PER_S) * 1e3
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def errs(out, ref):
@@ -1217,14 +1197,32 @@ def check_served(torch, tag, res, counts, vocab, want_prefill):
 
 def k5_replay(rec):
     """Every recorded K5 launch against the plain version on its own inputs:
-    (max |error|, the worst launch's error in bf16 steps)."""
+    (max |error|, the worst launch's error in bf16 steps, the worst relative
+    to its output's scale)."""
     from repro_torch.kernels.attention import ref as attn_ref
 
-    abs_ = steps = 0.0
+    abs_ = steps = rel = 0.0
     for args, kw, out in rec:
         err, scale = errs(out, attn_ref.attention_ref(*args, **kw))
         abs_, steps = max(abs_, err), max(steps, err / k5_bf16_tol(scale))
-    return abs_, steps
+        rel = max(rel, err / scale)
+    return abs_, steps, rel
+
+
+def k6_replay(rec):
+    """Every recorded K6 launch (with its final state) against the plain
+    version on its own inputs: (max |error|, the worst relative to its
+    output's scale), y and the state."""
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    abs_ = worst = 0.0
+    for args, _, out in rec:
+        x, dt, a, b_mat, c_mat, d_vec, chunk, _ = args
+        y_ref, h_ref = ssd_ref.ssd_chunked_ref(x, dt, a, b_mat, c_mat, d_vec, chunk)
+        for got, ref in ((out[0], y_ref), (out[1], h_ref)):
+            err, scale = errs(got, ref)
+            worst, abs_ = max(worst, err / scale), max(abs_, err)
+    return abs_, worst
 
 
 def lm_phases(torch, dev):
@@ -1384,15 +1382,9 @@ def lm_phases(torch, dev):
                  dict(flash_attention=napp, ssd_chunk=cfg.n_layers))
 
     # ---- [check lm]: every K5 / K6 launch of the path, replayed plain ---- #
-    abs5, worst5 = k5_replay(rec5)
-    worst6 = abs6 = 0.0
+    abs5, worst5, _ = k5_replay(rec5)
+    abs6, worst6 = k6_replay(rec6)
     k6_types = sorted({str(args[0].dtype) for args, _, _ in rec6})
-    for args, kw, out in rec6:
-        x, dt, a, b_mat, c_mat, d_vec, chunk, _ = args
-        y_ref, h_ref = ssd_ref.ssd_chunked_ref(x, dt, a, b_mat, c_mat, d_vec, chunk)
-        for got, ref in ((out[0], y_ref), (out[1], h_ref)):
-            err, scale = errs(got, ref)
-            worst6, abs6 = max(worst6, err / scale), max(abs6, err)
     print(f"[check lm] K5: {len(rec5)} launches of the path against the plain version, "
           f"max_abs_err {abs5:.3e}, worst launch {worst5:.2f} bf16 steps (bar 1); K6: "
           f"{len(rec6)} launches (x, B, C {k6_types}), "
@@ -1442,6 +1434,8 @@ def lm_family_phases(torch, dev):
     """[lm-dense], [check lm-dense], [lm-moe], [check lm-moe] and
     [lm-families-small].  Returns each path's launch counts and K5's largest
     error on the two full-size paths."""
+    print(f"[lm-dense] this process holds {torch.cuda.memory_allocated()} bytes on the card "
+          f"before the phase")
     import numpy as np
 
     from repro_torch.configs.registry import get_config
@@ -1519,7 +1513,7 @@ def lm_family_phases(torch, dev):
         [(attn_kern, "flash_attention_cuda", recorder(rec))])
     check_served(torch, "lm-moe", res, paths["lm-moe"], cfg.vocab,
                  dict(flash_attention=cfg.n_layers))
-    abs_moe, worst = k5_replay(rec)
+    abs_moe, worst, _ = k5_replay(rec)
     print(f"[check lm-moe] K5: {len(rec)} launches of the path against the plain version, "
           f"max_abs_err {abs_moe:.3e}, worst launch {worst:.2f} bf16 steps (bar 1)")
     check(len(rec) == cfg.n_layers, f"check lm-moe: {len(rec)} launches")
@@ -1746,6 +1740,8 @@ def backward_timer(torch, store: list):
 def train_phases(torch, dev):
     """[train-small], [train], [check train] and [train-moe].  Returns each
     path's launch counts."""
+    print(f"[train] this process holds {torch.cuda.memory_allocated()} bytes on the card "
+          f"before the phase")
     import numpy as np
 
     from repro_torch.ckpt import checkpoint as ckpt_mod
@@ -2093,7 +2089,7 @@ def _routing_diff(mine: list, ref: list, top_k: int) -> tuple[list, list]:
     return per_layer, margins
 
 
-def lm_mesh_rank(mesh, cfg, state, batch, want_grads, stream_case):
+def lm_mesh_rank(mesh, cfg, state, batch, want_grads, stream_case, serve_case):
     """One rank of [lm-mesh] (then of [mesh-stream]): the model's slices
     from ``state`` (this process's whole tensors, by CUDA IPC), one loss and
     gradient with the counts zeroed before and read after, its K5 launches
@@ -2109,7 +2105,6 @@ def lm_mesh_rank(mesh, cfg, state, batch, want_grads, stream_case):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     model = sharding.shard_model(Model(cfg, device="meta"), mesh, full=state).trainable()
-    del state
     params = dict(model.named_parameters())
     out = dict(rank=mesh.rank, describe=mesh.describe(),
                params_local=sum(p.numel() for p in params.values()),
@@ -2141,7 +2136,7 @@ def lm_mesh_rank(mesh, cfg, state, batch, want_grads, stream_case):
     del got
     out.update(loss=loss.item(), ce=met["ce"].item(), aux=met["aux"].item(),
                grad_norm=norm.item())
-    out["k5_err"], out["k5_steps"] = k5_replay(rec)
+    out["k5_err"], out["k5_steps"], _ = k5_replay(rec)
     out["k5_replayed"] = len(rec)
     del rec
     for tag in ("", "32"):
@@ -2151,7 +2146,7 @@ def lm_mesh_rank(mesh, cfg, state, batch, want_grads, stream_case):
             restore = _routing_recorder(out["routing32"], cfg.n_layers)
             try:
                 with dist_api.use_mesh(mesh):
-                    loss, _ = model.loss_fn(sharding.shard_batch(batch, mesh))
+                    loss, met = model.loss_fn(sharding.shard_batch(batch, mesh))
                     got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
                     grads = sharding.sync_grads(
                         {k: torch.zeros_like(p) if g is None else g
@@ -2182,7 +2177,7 @@ def lm_mesh_rank(mesh, cfg, state, batch, want_grads, stream_case):
     restore = _routing_recorder(out["routing_shallow"], MESH_SHALLOW)
     try:
         with dist_api.use_mesh(mesh):
-            loss, _ = model.loss_fn(sharding.shard_batch(batch, mesh))
+            loss, met = model.loss_fn(sharding.shard_batch(batch, mesh))
             got = torch.autograd.grad(loss, list(sparams.values()), allow_unused=True)
             grads = sharding.sync_grads({k: torch.zeros_like(p) if g is None else g
                                          for (k, p), g in zip(sparams.items(), got)}, model, mesh)
@@ -2195,9 +2190,11 @@ def lm_mesh_rank(mesh, cfg, state, batch, want_grads, stream_case):
     out["loss_shallow"] = loss.item()
     out["grads_shallow"] = gathered if mesh.rank == 0 else None
     out["expert_grad_shallow"] = grads["layers.0.moe.w_gate"][0].cpu()
-    del got, grads, gathered, sparams, every, model
+    # the losses' graphs hold the parameters (their AccumulateGrad nodes)
+    del got, grads, gathered, sparams, every, model, loss, met, norm
     torch.cuda.empty_cache()
     out["stream"] = mesh_stream_rank(mesh, *stream_case)
+    out["serve"] = mesh_serve_rank(mesh, cfg, state, serve_case)
     return out
 
 
@@ -2270,8 +2267,8 @@ def mesh_stream_rank(lm_mesh, xr, tree, pad_from):
     return out
 
 
-def lm_fsdp_rank(mesh, cfg, state, batches, comp_g, pipe):
-    """One rank of [lm-mesh-fsdp] and [collectives]."""
+def lm_fsdp_rank(mesh, cfg, state, batches, comp_g, pipe, hybrid):
+    """One rank of [lm-mesh-fsdp], [collectives] and [lm-mesh-serve-hybrid]."""
     import torch
 
     from repro_torch.dist import api as dist_api, sharding
@@ -2309,7 +2306,7 @@ def lm_fsdp_rank(mesh, cfg, state, batches, comp_g, pipe):
     finally:
         restore()
     del model, step, opt
-    out["k5_err"], out["k5_steps"] = k5_replay(rec)
+    out["k5_err"], out["k5_steps"], _ = k5_replay(rec)
     out["k5_replayed"] = len(rec)
     del rec
     torch.cuda.empty_cache()
@@ -2339,7 +2336,526 @@ def lm_fsdp_rank(mesh, cfg, state, batches, comp_g, pipe):
     out["pipeline"] = dict(ms=(time.perf_counter() - t0) * 1e3, traffic=dict(stages.stats),
                            close=bool(torch.allclose(y, seq, rtol=1e-5, atol=1e-6)),
                            err=(y - seq).abs().max().item())
+    del y, seq, summed, plain
+    torch.cuda.empty_cache()
+    out["hybrid"] = hybrid_serve_rank(mesh, hybrid)
     return out
+
+
+# ---------------------------------------------------------------------- #
+# Serving a model sharded over a mesh (slice 11)                           #
+# ---------------------------------------------------------------------- #
+# [lm-mesh-serve]: granite-moe-3b-a800m at full size, bf16, [lm-moe]'s call
+# (batch 4 x prompt 1024, then 16 greedy tokens) on the two [lm-mesh]
+# processes, a ("data", "model") (1, 2) mesh: each rank 12 of 24 query heads,
+# 4 of 8 kv heads in its cache, its run of the 48 padded experts; against
+# this process serving the same prompt.  bf16: the prefill's last logits
+# within MESH_SERVE_BF16_RTOL of the largest (the CPU tests' bf16 bar)
+# whatever the routing (bf16 rounding flips choices whose top-k margin is
+# below its 2^-8 step, and one flipped prompt token's expert mix reaches
+# the last position only through attention); each decode step whose input
+# tokens are equal held at the same bar unless its own token's routing
+# differs (a flipped choice changes that token's expert mix outright).
+# f32 compute, teacher-forced with one process's tokens, at full depth (all
+# 32 layers' sharded decode and cache writes): SERVE_F32_RTOL of the largest
+# |logit| on every step before the first routing difference, which must be
+# a rounding tie (MESH_TIE_MARGIN), and SERVE_F32_TIE_RTOL on every step
+# from it on (the readings of PR 24's runs: at most 1.11e-5 on every step,
+# past a tie at margin 2.53e-7); and the first MESH_SHALLOW layers alone,
+# whose routing must equal one process's, on every step.  Every K5 launch of
+# the bf16 path replayed (k5_bf16_tol).  The rank's parameter and cache
+# bytes equal what launch.specs.rank_bytes predicts for the decode shape
+# (B 4, cache 1040) at (1, 2).
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 16
+MESH_SERVE_BF16_RTOL, SERVE_F32_RTOL, SERVE_F32_TIE_RTOL = LM_SMALL_BF16_RTOL, 1e-4, 1e-3
+SERVE_F32_GEN = 4         # decode steps of the f32 and the 4-layer passes
+# [lm-mesh-serve-hybrid]: zamba2-1.2b at full size, bf16, on the four
+# [lm-mesh-fsdp] processes ((2, 2): 2 sequences a data shard, 16 of 32
+# attention heads and 32 of 64 SSM state heads a model rank), teacher-forced
+# with one process's 16 greedy tokens: logits within MESH_SERVE_BF16_RTOL; K6
+# 38 and K5 6 a rank, every launch replayed.  Then f32 compute on the same
+# ranks, teacher-forced for SERVE_F32_GEN steps: zamba2 routes nothing, so
+# every step within SERVE_F32_RTOL (the split SSM state update and the
+# gather of y, the head-parallel shared attention), every launch replayed.
+# [lm-mesh-serve-families]: (arch, batch, prompt tokens, decode steps) at
+# full width, 2 layers, bf16, on the two [lm-mesh] processes, teacher-forced
+# against one process: gemma2's prompt past its 4096 window (the even
+# layer's window and the softcap in the head-parallel decode), paligemma's
+# one kv head (the plan replicates its cache; each rank reads its slice).
+SERVE_FAMILIES = [("gemma2-9b", 2, 4352, 4), ("paligemma-3b", 2, 64, 4)]
+
+
+def serve_path(mesh, model, batch, max_len, gen, teacher=None, routing=None):
+    """One serving path of ``model`` on this rank of ``mesh`` (None: one
+    process), the launch counts zeroed just before and read just after:
+    prefill of the global ``batch``, then ``gen`` decode steps, greedy from
+    the rank's own logits or teacher-forced with ``teacher`` (B, gen) (the
+    rank feeds its rows).  ``routing``: a list that receives every MoE
+    chunk's routing (_routing_recorder).  Returns the logits of prefill and
+    each step and the greedy tokens (CPU), prefill and decode ms, launches
+    (prefill, decode), traffic, peak above the start, the cache's bytes and
+    shapes, and every K5 / K6 launch replayed against the plain version."""
+    import torch
+
+    from repro_torch.dist import api as dist_api, sharding
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.attention import kernel as attn_kern
+    from repro_torch.kernels.ssd import kernel as ssd_kern
+
+    rec5, rec6 = [], []
+    launchers = [(attn_kern, "flash_attention_cuda", rec5), (ssd_kern, "ssd_chunk_cuda", rec6)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in launchers]
+    for mod, name, rec in launchers:
+        setattr(mod, name, recorder(rec)(getattr(mod, name)))
+    restore = (_routing_recorder(routing, 1 << 30) if routing is not None
+               else (lambda: None))
+    mine = None
+    if teacher is not None:
+        mine = teacher if mesh is None else sharding.shard_batch({"t": teacher}, mesh)["t"]
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        if mesh is not None:
+            mesh.reset_stats()
+        _build.reset_launch_counts()
+        with dist_api.use_mesh(mesh):
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(batch, max_len)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pre = dict(_build.launch_counts)
+            _build.reset_launch_counts()
+            outs, toks = [logits.float().cpu()], [logits.argmax(-1).cpu()]
+            for i in range(gen):
+                step = toks[-1][:, None].to(logits.device) if mine is None else mine[:, i:i + 1]
+                logits, cache = model.decode_step(cache, step)
+                outs.append(logits.float().cpu())
+                toks.append(logits.argmax(-1).cpu())
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        out = dict(prefill_ms=(t1 - t0) * 1e3, decode_ms=(t2 - t1) * 1e3 / max(gen, 1),
+                   launches=(pre, dict(_build.launch_counts)),
+                   traffic=None if mesh is None else dict(mesh.stats),
+                   peak_bytes=torch.cuda.max_memory_allocated() - base)
+    finally:
+        restore()
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    leaves = {k: v for k, v in cache.items() if isinstance(v, torch.Tensor)}
+    out.update(logits=torch.stack(outs), tokens=torch.stack(toks, 1),
+               cache_bytes=sum(v.numel() * v.element_size() for v in leaves.values()),
+               cache_shapes={k: tuple(v.shape) for k, v in leaves.items()},
+               pos=cache["pos"])
+    del cache, leaves
+    out["k5_err"], out["k5_steps"], out["k5_rel"] = k5_replay(rec5)
+    out["k6_err"], out["k6_rel"] = k6_replay(rec6)
+    out["replayed"] = (len(rec5), len(rec6))
+    del rec5, rec6
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_inputs(torch, cfg, batch, prompt, gen, dev):
+    """The prompt's batch (``tokens``; vlm ``patches`` and text), max_len."""
+    from repro_torch.data.tokens import batch_for_config, to_device
+
+    seq = prompt + cfg.n_prefix_tokens
+    b = to_device(batch_for_config(cfg, batch, seq, 7), dev)
+    b.pop("labels", None)
+    if "patches" in b:
+        b["patches"] = b["patches"].to(torch.bfloat16)
+    return b, seq + gen
+
+
+def mesh_serve_rank(mesh, cfg, state, case):
+    """[lm-mesh-serve] and [lm-mesh-serve-families] on one of the [lm-mesh]
+    ranks: the model's slices from ``state`` (by CUDA IPC); the bf16 path
+    greedy, then f32 compute and the first MESH_SHALLOW layers teacher-forced
+    with one process's tokens; then each family's 2-layer model, drawn here
+    from the seed this process drew it from, and sliced."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.dist import sharding
+    from repro_torch.models.transformer import Model
+
+    torch.cuda.empty_cache()
+    model = sharding.shard_model(Model(cfg, device="meta"), mesh, full=state)
+    out = dict(params_bytes=sum(p.numel() * p.element_size() for p in model.parameters()))
+    routing = []
+    out["bf16"] = serve_path(mesh, model, case["batch"], case["max_len"], SERVE_GEN,
+                             routing=routing)
+    out["bf16"]["routing"] = routing
+    model.cfg = dc.replace(cfg, compute_dtype="float32")
+    model.weights_changed()
+    routing = []
+    out["f32"] = serve_path(mesh, model, case["batch"], case["max_len"], SERVE_F32_GEN,
+                            teacher=case["teacher"], routing=routing)
+    out["f32"]["routing"] = routing
+    model.layers = model.layers[:MESH_SHALLOW]
+    model.cfg = dc.replace(cfg, n_layers=MESH_SHALLOW, compute_dtype="float32")
+    model.weights_changed()
+    routing = []
+    out["shallow"] = serve_path(mesh, model, case["batch"], case["max_len"], SERVE_F32_GEN,
+                                teacher=case["teacher"], routing=routing)
+    out["shallow"]["routing"] = routing
+    del model
+    torch.cuda.empty_cache()
+    for name, fcfg, fbatch, fmax, fteacher in case["families"]:
+        gen = torch.Generator(device=mesh.device).manual_seed(0)
+        fm = sharding.shard_model(Model(fcfg, device=mesh.device).init(gen), mesh)
+        out[name] = serve_path(mesh, fm, fbatch, fmax, fteacher.shape[1], teacher=fteacher)
+        del fm
+        torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_serve_rank(mesh, case):
+    """[lm-mesh-serve-hybrid] on one of the four [lm-mesh-fsdp] ranks: bf16,
+    then f32 compute, both teacher-forced with one process's tokens."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.dist import sharding
+    from repro_torch.models.transformer import Model
+
+    model = sharding.shard_model(Model(case["cfg"], device="meta"), mesh, full=case["state"])
+    out = serve_path(mesh, model, case["batch"], case["max_len"], SERVE_GEN,
+                     teacher=case["teacher"])
+    out["params_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+    model.cfg = dc.replace(case["cfg"], compute_dtype="float32")
+    model.weights_changed()
+    out["f32"] = serve_path(mesh, model, case["batch"], case["max_len"], SERVE_F32_GEN,
+                            teacher=case["teacher"])
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _first_step(routing: list, ref: list, n_layers: int, top_k: int):
+    """(the first serving step whose routing differs from ``ref``'s: 0 for
+    prefill, i for decode step i, or None; that chunk's largest margin in
+    ``ref``, of the token's largest probability; the tokens that differ)."""
+    flips, margins = _routing_diff(routing, ref, top_k)
+    first = next((i for i, n in enumerate(flips) if n), None)
+    if first is None:
+        return None, 0.0, 0
+    return first // n_layers, margins[first], sum(flips)
+
+
+def _step_flips(routing: list, ref: list, n_layers: int, top_k: int) -> list:
+    """Per serving step (0 prefill, i decode step i), the token choices
+    whose routing differs from ``ref``'s, summed over the layers."""
+    flips, _ = _routing_diff(routing, ref, top_k)
+    return [sum(flips[i:i + n_layers]) for i in range(0, len(flips), n_layers)]
+
+
+def serve_gap(got, want, rows=slice(None)):
+    """Per step, max |got - want| over the largest |want| (want's ``rows``)."""
+    want = want[:, rows]
+    return [((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want)]
+
+
+def _line(tag, o, extra=""):
+    pre, dec = o["launches"]
+    print(f"[{tag}] prefill {o['prefill_ms']:.1f} ms, decode {o['decode_ms']:.2f} ms a step, "
+          f"peak {o['peak_bytes']} bytes above the start, cache {o['cache_bytes']} bytes "
+          f"{json.dumps(o['cache_shapes'])}; launches prefill "
+          f"{json.dumps({k: v for k, v in pre.items() if v})} decode "
+          f"{json.dumps({k: v for k, v in dec.items() if v})}; collectives "
+          f"{json.dumps(o['traffic'])}; replayed K5 {o['replayed'][0]} (max_abs_err "
+          f"{o['k5_err']:.3e}, worst {o['k5_steps']:.2f} bf16 steps or {o['k5_rel']:.3e} of "
+          f"its scale), K6 "
+          f"{o['replayed'][1]} (max_abs_err {o['k6_err']:.3e}, relative {o['k6_rel']:.3e}, "
+          f"tol {K6_RTOL:g}){extra}")
+
+
+def _path_checks(tag, o, want_pre, f32=False):
+    """The launches of the path (``want_pre`` in prefill, none in decode),
+    each replayed and within its bar: K5 one bf16 step, or K5_F32_RTOL of
+    its scale for an ``f32`` path; K6 K6_RTOL."""
+    pre, dec = o["launches"]
+    check(pre == dict(dict.fromkeys(pre, 0), **want_pre) and not any(dec.values()),
+          f"{tag}: launches {o['launches']}, expected prefill {want_pre} and none in decode")
+    k5_ok = o["k5_rel"] <= K5_F32_RTOL if f32 else o["k5_steps"] <= 1
+    check(o["replayed"] == (want_pre.get("flash_attention", 0), want_pre.get("ssd_chunk", 0))
+          and k5_ok and o["k6_rel"] <= K6_RTOL,
+          f"{tag}: the kernels' launches against their plain versions")
+
+
+def serve_references(torch, dev, model, cfg):
+    """One process serving [lm-mesh-serve]'s prompt with ``model`` (granite
+    at full size, this process's): bf16 greedy, then f32 compute and the
+    first MESH_SHALLOW layers teacher-forced with its tokens; and each of
+    SERVE_FAMILIES' 2-layer models greedy.  Returns the references and the
+    ranks' case (inputs on the card, the families' whole tensors)."""
+    import dataclasses as dc
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import Model
+
+    batch, max_len = _serve_inputs(torch, cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, dev)
+    ref = {}
+    routing = []
+    ref["bf16"] = serve_path(None, model, batch, max_len, SERVE_GEN, routing=routing)
+    ref["bf16"]["routing"] = routing
+    teacher = ref["bf16"]["tokens"][:, :SERVE_GEN].to(dev)
+    every = model.layers
+    for tag, n in (("f32", cfg.n_layers), ("shallow", MESH_SHALLOW)):
+        model.layers = every[:n]
+        model.cfg = dc.replace(cfg, n_layers=n, compute_dtype="float32")
+        model.weights_changed()
+        routing = []
+        ref[tag] = serve_path(None, model, batch, max_len, SERVE_F32_GEN, teacher=teacher,
+                              routing=routing)
+        ref[tag]["routing"] = routing
+    model.layers, model.cfg = every, cfg
+    model.weights_changed()
+    families = []
+    for arch, b, prompt, steps in SERVE_FAMILIES:
+        fcfg = dc.replace(get_config(arch), n_layers=2)
+        fm = Model(fcfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+        fbatch, fmax = _serve_inputs(torch, fcfg, b, prompt, steps, dev)
+        ref[arch] = serve_path(None, fm, fbatch, fmax, steps)
+        # the ranks draw the same weights from the same seed (no copy held
+        # here while they train)
+        families.append((arch, fcfg, fbatch, fmax, ref[arch]["tokens"][:, :steps].to(dev)))
+        del fm
+    torch.cuda.empty_cache()
+    return ref, dict(batch=batch, max_len=max_len, teacher=teacher, families=families)
+
+
+def serve_checks(runs, ref, cfg, paths):
+    """[lm-mesh-serve] and [lm-mesh-serve-families] on the two ranks against
+    one process, and the dry run's byte prediction against what they hold.
+    Returns the largest K5 error of their launches."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import specs
+    from repro_torch.models.transformer import Model
+
+    one = ref["bf16"]
+    print(f"[lm-mesh-serve] one process: {MOE_ARCH} {cfg.n_layers} layers, bf16, batch "
+          f"{SERVE_BATCH} x prompt {SERVE_PROMPT}, {SERVE_GEN} greedy tokens; sample token ids "
+          f"{one['tokens'][0][:12].tolist()}")
+    _line("lm-mesh-serve one process", one)
+    shape = ShapeSpec("lm-mesh-serve", "decode", SERVE_PROMPT + SERVE_GEN, SERVE_BATCH)
+    predicted, _ = specs.rank_bytes(Model(cfg, device="meta"), shape, dict(data=1, model=2),
+                                    fsdp=False)
+    kv = cfg.n_kv_heads // 2
+    want_cache = (2 * cfg.n_layers * SERVE_BATCH * (SERVE_PROMPT + SERVE_GEN) * kv
+                  * cfg.head_dim * 2)
+    k5_err = 0.0
+    for o in runs:
+        r, sv = o["rank"], o["serve"]
+        b16 = sv["bf16"]
+        paths[f"lm-mesh-serve-rank{r}"] = b16["launches"][0]
+        gap = serve_gap(b16["logits"], one["logits"])
+        first, margin, n_flip = _first_step(b16["routing"], one["routing"], cfg.n_layers,
+                                            cfg.top_k)
+        same = (b16["tokens"] == one["tokens"]).all(0)
+        j_tok = next((j for j, eq in enumerate(same.tolist()) if not eq), None)
+        # a token that differs before any routing difference must be a tie of
+        # the logits: one process's top two within the runs' gap at that step
+        tie = None
+        if j_tok is not None and (first is None or j_tok < first):
+            top2 = one["logits"][j_tok].topk(2, -1).values
+            tie = ((top2[:, 0] - top2[:, 1]).min() / one["logits"][j_tok].abs().max()).item()
+        # held: the prefill whatever the routing; a decode step whose inputs
+        # are equal (before the first token that differs feeds one) and whose
+        # own token's routing is equal to one process's
+        per_step = _step_flips(b16["routing"], one["routing"], cfg.n_layers, cfg.top_k)
+        held = [0] + [i for i in range(1, SERVE_GEN + 1)
+                      if (j_tok is None or i <= j_tok) and not per_step[i]]
+        _line(f"lm-mesh-serve rank {r}", b16,
+              f"; parameters {sv['params_bytes']} bytes (the dry run predicts "
+              f"{predicted[r]['params']}), cache {b16['cache_bytes']} bytes (predicted "
+              f"{predicted[r]['cache']}; 4 of 8 kv heads: {want_cache})")
+        print(f"[lm-mesh-serve] rank {r} against one process, bf16: logits gap by step "
+              f"{[float(f'{g:.3e}') for g in gap]} (bar {MESH_SERVE_BF16_RTOL:g}); greedy "
+              f"tokens equal on {int(same.sum())} of {same.numel()} steps, the first that "
+              f"differs {j_tok}; routing differences by step {per_step} (the first {first}, "
+              f"{n_flip} token choices in all, margin {margin:.3e}); held at "
+              f"{MESH_SERVE_BF16_RTOL:g} on steps {held}"
+              + ("" if tie is None else f"; top-two logit margin there {tie:.3e}"))
+        check(all(gap[i] <= MESH_SERVE_BF16_RTOL for i in held),
+              f"lm-mesh-serve: rank {r}'s bf16 logits disagree with one process")
+        check(tie is None or tie <= gap[j_tok],
+              f"lm-mesh-serve: rank {r}'s tokens differ before any routing or logit tie")
+        check(sv["params_bytes"] == predicted[r]["params"]
+              and b16["cache_bytes"] == predicted[r]["cache"] == want_cache,
+              f"lm-mesh-serve: rank {r}'s bytes differ from the dry run's prediction")
+        check(b16["cache_shapes"]["k"] == (cfg.n_layers, SERVE_BATCH, SERVE_PROMPT + SERVE_GEN,
+                                           kv, cfg.head_dim), "lm-mesh-serve: cache shape")
+        _path_checks(f"lm-mesh-serve rank {r}", b16, dict(flash_attention=cfg.n_layers))
+        k5_err = max(k5_err, b16["k5_err"])
+        # f32 compute, teacher-forced: tight where the routing is equal
+        f32 = sv["f32"]
+        gap32 = serve_gap(f32["logits"], ref["f32"]["logits"])
+        first32, margin32, n32 = _first_step(f32["routing"], ref["f32"]["routing"],
+                                             cfg.n_layers, cfg.top_k)
+        # every step: SERVE_F32_RTOL before the first routing difference (a
+        # rounding tie, checked), SERVE_F32_TIE_RTOL from it on
+        bars = [SERVE_F32_RTOL if first32 is None or i < first32 else SERVE_F32_TIE_RTOL
+                for i in range(len(gap32))]
+        sh = sv["shallow"]
+        gap_sh = serve_gap(sh["logits"], ref["shallow"]["logits"])
+        first_sh, _, _ = _first_step(sh["routing"], ref["shallow"]["routing"], MESH_SHALLOW,
+                                     cfg.top_k)
+        print(f"[lm-mesh-serve] rank {r} f32 compute, teacher-forced, {cfg.n_layers} layers: "
+              f"logits gap by step {[float(f'{g:.3e}') for g in gap32]}, bars {bars} "
+              f"({SERVE_F32_RTOL:g} before the first step whose routing differs, "
+              f"{SERVE_F32_TIE_RTOL:g} from it on); that step {first32} ({n32} token "
+              f"choices, margin {margin32:.3e}, bar {MESH_TIE_MARGIN:g}: a rounding tie); "
+              f"the first {MESH_SHALLOW} layers alone: routing equal {first_sh is None}, "
+              f"logits gap {max(gap_sh):.3e} (bar {SERVE_F32_RTOL:g})")
+        check(len(gap32) == SERVE_F32_GEN + 1
+              and all(g <= bar for g, bar in zip(gap32, bars)),
+              f"lm-mesh-serve: rank {r}'s f32 logits")
+        check(first32 is None or margin32 <= MESH_TIE_MARGIN,
+              f"lm-mesh-serve: rank {r}'s first f32 routing difference is not a tie")
+        check(first_sh is None and max(gap_sh) <= SERVE_F32_RTOL,
+              f"lm-mesh-serve: rank {r}'s first {MESH_SHALLOW} layers disagree in f32")
+        _path_checks(f"lm-mesh-serve rank {r} f32 compute", f32,
+                     dict(flash_attention=cfg.n_layers), f32=True)
+        _path_checks(f"lm-mesh-serve rank {r} first {MESH_SHALLOW} layers", sh,
+                     dict(flash_attention=MESH_SHALLOW), f32=True)
+        k5_err = max(k5_err, f32["k5_err"], sh["k5_err"])
+        # the families
+        for arch, *_ in SERVE_FAMILIES:
+            fo, fr = sv[arch], ref[arch]
+            fgap = serve_gap(fo["logits"], fr["logits"])
+            paths[f"lm-mesh-serve-{arch}-rank{r}"] = fo["launches"][0]
+            _line(f"lm-mesh-serve-families {arch} rank {r}", fo,
+                  f"; logits gap by step {[float(f'{g:.3e}') for g in fgap]} (bar "
+                  f"{MESH_SERVE_BF16_RTOL:g})")
+            check(max(fgap) <= MESH_SERVE_BF16_RTOL,
+                  f"lm-mesh-serve-families: {arch} rank {r} disagrees with one process")
+            _path_checks(f"lm-mesh-serve-families {arch} rank {r}", fo,
+                         dict(flash_attention=2))
+            k5_err = max(k5_err, fo["k5_err"])
+    for arch, *_ in SERVE_FAMILIES:
+        print(f"[lm-mesh-serve-families] {arch} one process: cache "
+              f"{json.dumps(ref[arch]['cache_shapes'])}; rank 0's "
+              f"{json.dumps(runs[0]['serve'][arch]['cache_shapes'])}")
+    return k5_err
+
+
+def hybrid_reference(torch, dev):
+    """zamba2-1.2b at full size served greedy in this process, then in f32
+    compute teacher-forced with its tokens (``ref["f32"]``); the ranks' case."""
+    import dataclasses as dc
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import Model
+
+    cfg = get_config(LM_ARCH)
+    model = Model(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(0))
+    batch, max_len = _serve_inputs(torch, cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, dev)
+    ref = serve_path(None, model, batch, max_len, SERVE_GEN)
+    teacher = ref["tokens"][:, :SERVE_GEN].to(dev)
+    model.cfg = dc.replace(cfg, compute_dtype="float32")
+    model.weights_changed()
+    ref["f32"] = serve_path(None, model, batch, max_len, SERVE_F32_GEN, teacher=teacher)
+    model.cfg = cfg
+    model.weights_changed()
+    case = dict(cfg=cfg, state={k: p.detach() for k, p in model.named_parameters()},
+                batch=batch, max_len=max_len, teacher=teacher)
+    return ref, case
+
+
+def hybrid_checks(runs, ref, paths):
+    """[lm-mesh-serve-hybrid] on the four ranks against one process.
+    Returns the largest K5 and K6 errors of their launches."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(LM_ARCH)
+    napp = cfg.n_layers // cfg.shared_attn_every
+    _line("lm-mesh-serve-hybrid one process", ref)
+    _line("lm-mesh-serve-hybrid one process f32 compute", ref["f32"])
+    k5 = k6 = 0.0
+    for o in runs:
+        r, h = o["rank"], o["hybrid"]
+        d = r // 2
+        rows = slice(d * SERVE_BATCH // 2, (d + 1) * SERVE_BATCH // 2)
+        gap = serve_gap(h["logits"], ref["logits"], rows)
+        agree = (h["tokens"] == ref["tokens"][rows]).float().mean().item()
+        paths[f"lm-mesh-serve-hybrid-rank{r}"] = h["launches"][0]
+        _line(f"lm-mesh-serve-hybrid rank {r}", h,
+              f"; parameters {h['params_bytes']} bytes; logits gap by step "
+              f"{[float(f'{g:.3e}') for g in gap]} (bar {MESH_SERVE_BF16_RTOL:g}); its greedy "
+              f"choice equal to one process's token on {agree:.4f} of the steps")
+        check(max(gap) <= MESH_SERVE_BF16_RTOL, f"lm-mesh-serve-hybrid: rank {r} disagrees")
+        f32 = h["f32"]
+        gap32 = serve_gap(f32["logits"], ref["f32"]["logits"], rows)
+        _line(f"lm-mesh-serve-hybrid rank {r} f32 compute", f32,
+              f"; logits gap by step {[float(f'{g:.3e}') for g in gap32]} (bar "
+              f"{SERVE_F32_RTOL:g})")
+        check(len(gap32) == SERVE_F32_GEN + 1 and max(gap32) <= SERVE_F32_RTOL,
+              f"lm-mesh-serve-hybrid: rank {r}'s f32 logits disagree with one process")
+        _path_checks(f"lm-mesh-serve-hybrid rank {r} f32 compute", f32,
+                     dict(flash_attention=napp, ssd_chunk=cfg.n_layers), f32=True)
+        check(h["cache_shapes"]["ssm_state"] == (cfg.n_layers, SERVE_BATCH // 2,
+                                                 cfg.ssm_heads // 2, cfg.ssm_state,
+                                                 cfg.ssm_head_dim)
+              and h["cache_shapes"]["shared_k"][1:4] == (SERVE_BATCH // 2,
+                                                          SERVE_PROMPT + SERVE_GEN,
+                                                          cfg.n_kv_heads // 2),
+              f"lm-mesh-serve-hybrid: rank {r}'s cache {h['cache_shapes']}")
+        _path_checks(f"lm-mesh-serve-hybrid rank {r}", h,
+                     dict(flash_attention=napp, ssd_chunk=cfg.n_layers))
+        k5, k6 = max(k5, h["k5_err"], f32["k5_err"]), max(k6, h["k6_err"], f32["k6_err"])
+    return k5, k6
+
+
+DRYRUN_CELLS = [("granite-moe-3b-a800m", "prefill_32k", False),
+                ("granite-moe-3b-a800m", "decode_32k", False),
+                ("llama3-405b", "train_4k", False), ("svm-hss-admm", "admm_grid", True)]
+
+
+def dryrun_start():
+    """Start [dryrun]: ``python -m repro_torch.launch.dryrun`` for each of
+    DRYRUN_CELLS, one subprocess a cell, all at once, on the host (no card).
+    Returns (the start time, the processes)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape, multi in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape] + (["--multi-pod"] if multi else [])
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True, env=env, cwd=ROOT))
+    return time.perf_counter(), procs
+
+
+def dryrun_phase(started):
+    """[dryrun]: each record's memory, FLOPs, collectives and seconds."""
+    t0, procs = started
+    for (arch, shape, _), proc in zip(DRYRUN_CELLS, procs):
+        out, err = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"dryrun: {arch} {shape} exited {proc.returncode}: "
+              f"{err[-2000:]}")
+        rec = json.loads(out.strip().splitlines()[-1])
+        m, c, rf = rec["memory"], rec["collectives"], rec["roofline"]
+        extra = ""
+        if "model_flops_global" in rec:
+            extra = (f"; model_flops_global {rec['model_flops_global']:.4e}, "
+                     f"model_vs_counted_flops {rec['model_vs_counted_flops']:.4f}")
+        print(f"[dryrun] {arch} {shape} on {rec['mesh']} ({rec['n_devices']} ranks, rank "
+              f"{rec['traced_rank']} traced): status {rec['status']}, {rec['compile_s']} s; "
+              f"memory argument {m['argument_bytes']} (by group "
+              f"{json.dumps(rec['argument_bytes_by_group'])}), output {m['output_bytes']}, "
+              f"temp {m['temp_bytes']}, total {m['total_per_device']} bytes; flops "
+              f"{rf['flops_per_device']:.4e}, bytes {rf['bytes_per_device']:.4e} a rank (K5/K6: "
+              f"{json.dumps(rf['kernels'])}); collectives {c['n_collectives']} calls, operand "
+              f"{c['operand_bytes']:.4e} B, ring {c['ring_bytes']:.4e} B "
+              f"{json.dumps(c['per_op'])}; roofline compute {rf['t_compute_s']:.4e} s, memory "
+              f"{rf['t_memory_s']:.4e} s, collective {rf['t_collective_s']:.4e} s "
+              f"({rf['dominant']}){extra}")
+        check(rec["status"] == "ok", f"dryrun: {arch} {shape}: {rec.get('error')}")
+    print(f"[dryrun] {len(DRYRUN_CELLS)} cells done {time.perf_counter() - t0:.1f} s after "
+          f"they started")
 
 
 def lm_mesh_phases(torch, dev):
@@ -2360,6 +2876,13 @@ def lm_mesh_phases(torch, dev):
     from repro_torch.models.transformer import Model
     from repro_torch.train import optim
 
+    # the mesh phases share the card between this process and 2 or 4 ranks:
+    # free what the earlier phases left to the garbage collector
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[lm-mesh] this process holds {torch.cuda.memory_allocated()} bytes on the card "
+          f"before the mesh phases ({held} before a garbage collection)")
     paths = {}
     cfg = get_config(MOE_ARCH)
     gen = torch.Generator(device=dev)
@@ -2434,14 +2957,16 @@ def lm_mesh_phases(torch, dev):
     x_pad, _, _, r_levels = tree_mod.pad_dataset(rdata[0], rdata[1].astype(np.float32), LEAF)
     r_pad_from = float(rdata[0][:, 0].max())
     r_tree = tree_mod.build_tree(x_pad, LEAF, r_levels)
+    # [lm-mesh-serve] and [lm-mesh-serve-families]: one process first
+    serve_ref, serve_case = serve_references(torch, dev, model, cfg)
     state = {k: p.detach() for k, p in params.items()}
     t0 = time.perf_counter()
     runs = dist_api.spawn(lm_mesh_rank, 2, cfg, state, batch, MESH_LEAVES,
-                          (x_pad[r_tree.perm], r_tree, r_pad_from), backend="gloo", device=dev.type,
-                          mesh_shape=(1, 2), mesh_names=("data", "model"))
+                          (x_pad[r_tree.perm], r_tree, r_pad_from), serve_case, backend="gloo",
+                          device=dev.type, mesh_shape=(1, 2), mesh_names=("data", "model"))
     t_spawn = time.perf_counter() - t0
     torch.cuda.ipc_collect()
-    del state, params, model
+    del state, params, model, serve_case
     torch.cuda.empty_cache()
     want5 = 2 * cfg.n_layers                     # forward and each layer's recompute
     for o in runs:
@@ -2552,6 +3077,9 @@ def lm_mesh_phases(torch, dev):
               f"mesh-stream: launches {s['launches']} for {s['batches']} batches")
         check(s["device_peak"] is not None and s["device_peak"] <= STREAM_DEVICE_PEAK_MAX,
               "mesh-stream: the level loop's device peak")
+    # ---- [lm-mesh-serve] and [lm-mesh-serve-families] ----------------- #
+    k5_err = max(k5_err, serve_checks(runs, serve_ref, cfg, paths))
+    del serve_ref
     del runs
 
     # ---- [lm-mesh-1]: a (1, 1) mesh over NCCL, bit for bit ------------- #
@@ -2599,13 +3127,14 @@ def lm_mesh_phases(torch, dev):
             0.1 * torch.randn((4, PIPE_WIDTH), device=dev, generator=gen.manual_seed(7)),
             torch.randn((PIPE_MICRO, PIPE_MB, PIPE_WIDTH), device=dev,
                         generator=gen.manual_seed(8)))
+    hyb_ref, hybrid = hybrid_reference(torch, dev)
     t0 = time.perf_counter()
-    runs = dist_api.spawn(lm_fsdp_rank, 4, fcfg, state, batches, g_comp, pipe,
+    runs = dist_api.spawn(lm_fsdp_rank, 4, fcfg, state, batches, g_comp, pipe, hybrid,
                           backend="gloo", device=dev.type, mesh_shape=(2, 2),
                           mesh_names=("data", "model"))
     t_spawn = time.perf_counter() - t0
     torch.cuda.ipc_collect()
-    del state, model, batches, g_comp, pipe
+    del state, model, batches, g_comp, pipe, hybrid
     torch.cuda.empty_cache()
     want5 = 2 * FSDP_LAYERS * FSDP_STEPS
     for o in runs:
@@ -2642,7 +3171,9 @@ def lm_mesh_phases(torch, dev):
               and c["traffic"]["all_gather_bytes"] == chunk + blocks * 4,
               "collectives: the compressed all-reduce")
         check(p["close"], "collectives: the pipeline disagrees with the stages in sequence")
-    return paths, k5_err
+    # ---- [lm-mesh-serve-hybrid] ------------------------------------------ #
+    k5_h, k6_err = hybrid_checks(runs, hyb_ref, paths)
+    return paths, max(k5_err, k5_h), k6_err
 
 
 # ---------------------------------------------------------------------- #
@@ -2896,13 +3427,6 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    try:
-        import repro_torch  # noqa: F401
-    except ImportError:
-        print("chip_smoke: the repro_torch package is not beside this script",
-              file=sys.stderr)
         return 2
     import numpy as np
 
@@ -4340,7 +4864,10 @@ def main() -> int:
     # ---- 25-28. LM training ------------------------------------------- #
     train_counts = train_phases(torch, dev)
     # ---- 29-33. the mesh LM and the streamed build on a mesh ----------- #
-    lm_mesh_counts, k5_mesh_err = lm_mesh_phases(torch, dev)
+    lm_mesh_counts, k5_mesh_err, k6_mesh_err = lm_mesh_phases(torch, dev)
+    # ---- 37. the dry run (after the mesh phases, whose host-bound gloo
+    # ranks it would otherwise slow) ------------------------------------ #
+    dryrun_phase(dryrun_start())
 
     # ---- 16. summary -------------------------------------------------- #
     by_path = {"main": main_counts, "lap": lap_counts, "accurate": acc_counts,
@@ -4379,9 +4906,14 @@ def main() -> int:
         e["launches"] = sum(by_path[p][e["name"]] for p in ("lm", "train", "train-moe"))
     lm_kernels[0]["max_abs_err"] = max(lm_kernels[0]["max_abs_err"], k5_family_err,
                                        k5_mesh_err)
+    lm_kernels[1]["max_abs_err"] = max(lm_kernels[1]["max_abs_err"], k6_mesh_err)
     # K5 on each rank of [lm-mesh] (granite at full size, (1, 2) mesh)
     lm_kernels[0]["launches_lm_mesh_per_rank"] = [
         by_path[f"lm-mesh-rank{r}"]["flash_attention"] for r in range(2)]
+    # the sharded serving paths (slice 11): K5 on each rank's heads, K6 a rank
+    for e in lm_kernels:
+        e["launches_lm_mesh_serve_per_rank"] = {
+            p: by_path[p][e["name"]] for p in by_path if p.startswith("lm-mesh-serve")}
     print(f"[summary] card {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

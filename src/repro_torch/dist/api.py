@@ -59,17 +59,29 @@ crossed.
 ``Mesh.describe()`` prints the backend and device, ``Mesh.stats`` counts
 calls, bytes and the host seconds inside the calls per kind (gloo returns
 once its copies to and from the host are done, so on CUDA tensors these
-seconds hold the transfer; NCCL returns at the enqueue).
+seconds hold the transfer; NCCL returns at the enqueue), and ``Mesh.ring``
+the bytes each kind puts on a ring of its group's size (×2(n−1)/n for an
+all-reduce, and so on: ``RING``).
+
+The dry run.  ``make_mesh("meta", shape, names, rank=r)`` is a mesh that
+moves nothing: a "fake" process group of prod(shape) ranks, in which this
+process stands for rank r; its tensors live on the meta device (shapes and
+types, no memory), and its collectives return at once, counted in
+``stats`` and ``ring`` as on a real mesh.  ``launch/dryrun.py`` runs one
+rank's step on it.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import os
 import shutil
+import sys
 import tempfile
 import threading
 import time
+import traceback
 
 import torch
 import torch.distributed as dist
@@ -80,6 +92,17 @@ ALL = "__all__"               # every axis of the mesh
 # logical axis -> candidate mesh axes, in composition (major-to-minor) order
 _LOGICAL_AXES = {"data": ("pod", "data"), "model": ("model",), "stage": ("stage",)}
 _KINDS = ("all_gather", "all_reduce", "all_to_all", "reduce_scatter", "send_recv")
+
+
+# bytes that one call of each kind puts on a ring of n ranks, from the bytes
+# it was handed (the shard for a gather, the whole for the others)
+RING = {
+    "all_reduce": lambda b, n: 2 * b * (n - 1) / n,
+    "all_gather": lambda b, n: b * (n - 1),
+    "reduce_scatter": lambda b, n: b * (n - 1) / n,
+    "all_to_all": lambda b, n: b * (n - 1) / n,
+    "send_recv": lambda b, n: float(b),
+}
 
 
 def _zero_stats() -> dict:
@@ -102,6 +125,8 @@ class Mesh:
     stats: dict = dataclasses.field(default_factory=_zero_stats)
     # composite axes (several mesh axes in one group): tuple -> group
     composite: dict = dataclasses.field(default_factory=dict)
+    # per collective kind: the bytes on a ring of its group's size (RING)
+    ring: dict = dataclasses.field(default_factory=lambda: dict.fromkeys(_KINDS, 0.0))
 
     @property
     def axis_names(self) -> tuple:
@@ -145,22 +170,44 @@ class Mesh:
     def reset_stats(self) -> None:
         for key in self.stats:
             self.stats[key] = 0
+        for key in self.ring:
+            self.ring[key] = 0.0
+
+
+def _fake_group(world: int, rank: int) -> None:
+    """A "fake" process group of ``world`` ranks in which this process is
+    ``rank`` (started, or restarted at another rank); a real group in this
+    process is an error."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise ValueError("a meta mesh needs a process without a real process group")
+        if (dist.get_world_size(), dist.get_rank()) == (world, rank):
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
 
 
 def make_mesh(device: str | torch.device, shape: tuple | None = None,
-              names: tuple = (AXIS,)) -> Mesh:
+              names: tuple = (AXIS,), rank: int = 0) -> Mesh:
     """The mesh of ``shape`` (default: every rank of the initialised process
     group on one axis) with axes ``names``, one process group per axis; the
     ("pod", "data") pair, where both are present, also gets a group of its
-    own (the logical "data" axis)."""
+    own (the logical "data" axis).  ``device="meta"``: the dry run's mesh
+    over a fake group of prod(``shape``) ranks, this process as ``rank``
+    (module docstring)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     device = torch.device(device)
+    if device.type == "meta":
+        _fake_group(math.prod(shape), rank)
     shape = (dist.get_world_size(),) if shape is None else tuple(int(n) for n in shape)
     names = tuple(names)
     if len(shape) != len(names):
         raise ValueError(f"mesh shape {shape} and axis names {names} differ in length")
-    dm = init_device_mesh(device.type, shape, mesh_dim_names=names)
+    dm = init_device_mesh("cpu" if device.type == "meta" else device.type, shape,
+                          mesh_dim_names=names)
     mesh = Mesh(device_mesh=dm, device=device)
     if "pod" in names and "data" in names:
         axes = ("pod", "data")
@@ -309,11 +356,13 @@ def _setup(axis, mesh):
 
 
 @contextlib.contextmanager
-def _counted(mesh: Mesh, kind: str, t: torch.Tensor, n: int = 1):
-    """Count ``n`` collectives of ``kind`` each handing over ``t``, and the
-    time of the block."""
+def _counted(mesh: Mesh, kind: str, t: torch.Tensor, size: int, n: int = 1):
+    """Count ``n`` collectives of ``kind`` each handing over ``t`` in a group
+    of ``size`` ranks, their ring bytes, and the time of the block."""
+    nbytes = n * t.numel() * t.element_size()
     mesh.stats[f"{kind}_calls"] += n
-    mesh.stats[f"{kind}_bytes"] += n * t.numel() * t.element_size()
+    mesh.stats[f"{kind}_bytes"] += nbytes
+    mesh.ring[kind] += RING[kind](nbytes, size)
     t0 = time.perf_counter()
     try:
         yield
@@ -338,9 +387,9 @@ def psum(t: torch.Tensor, axis, mesh: Mesh | None = None, op=None) -> torch.Tens
     s = _setup(axis, mesh)
     if s is None:
         return t
-    mesh, group, _ = s
+    mesh, group, size = s
     x = t.contiguous().clone()
-    with _counted(mesh, "all_reduce", x):
+    with _counted(mesh, "all_reduce", x, size):
         dist.all_reduce(x, op=dist.ReduceOp.SUM if op is None else op, group=group)
     return x
 
@@ -362,7 +411,7 @@ def all_gather(t: torch.Tensor, axis, dim: int = 0, mesh: Mesh | None = None
     mesh, group, size = s
     x = t.contiguous()
     parts = [torch.empty_like(x) for _ in range(size)]
-    with _counted(mesh, "all_gather", x):
+    with _counted(mesh, "all_gather", x, size):
         dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim)
 
@@ -380,7 +429,7 @@ def all_to_all(t: torch.Tensor, axis, split_dim: int = 0, concat_dim: int = 0,
         raise ValueError(f"dim {split_dim} of {tuple(t.shape)} does not split over {size}")
     x = t.movedim(split_dim, 0).contiguous()
     got = torch.empty_like(x)
-    with _counted(mesh, "all_to_all", t):
+    with _counted(mesh, "all_to_all", t, size):
         dist.all_to_all_single(got, x, group=group)
     return torch.cat([c.movedim(0, split_dim) for c in got.chunk(size, 0)], concat_dim)
 
@@ -397,7 +446,7 @@ def reduce_scatter(t: torch.Tensor, axis, dim: int = 0, mesh: Mesh | None = None
         raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split over {size}")
     ins = [c.contiguous() for c in torch.chunk(t, size, dim)]
     out = torch.empty_like(ins[0])
-    with _counted(mesh, "reduce_scatter", t):
+    with _counted(mesh, "reduce_scatter", t, size):
         dist.reduce_scatter(out, ins, group=group)
     return out
 
@@ -409,7 +458,7 @@ def ppermute(t: torch.Tensor, axis, perm, mesh: Mesh | None = None) -> torch.Ten
     s = _setup(axis, mesh)
     if s is None:
         return torch.zeros_like(t)
-    mesh, group, _ = s
+    mesh, group, size = s
     me = axis_index(axis, mesh)
     ranks = _axis_ranks(mesh, mesh_axes(mesh, axis))
     staged = _staged(group, t)
@@ -425,7 +474,7 @@ def ppermute(t: torch.Tensor, axis, perm, mesh: Mesh | None = None) -> torch.Ten
             ops.append(dist.P2POp(dist.irecv, buf_in, ranks[i], group=group))
     if ops:
         # one count a send; a rank that only receives counts its wait
-        with _counted(mesh, "send_recv", x, n=sum(1 for i, _ in perm if i == me)):
+        with _counted(mesh, "send_recv", x, size, n=sum(1 for i, _ in perm if i == me)):
             for w in dist.batch_isend_irecv(ops):
                 w.wait()
     if any(j == me for _, j in perm):
@@ -584,7 +633,7 @@ def all_gather_nodes(t: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
         return t
     x = t.contiguous().to(mesh.device)
     parts = [torch.empty_like(x) for _ in range(mesh.size)]
-    with _counted(mesh, "all_gather", x):
+    with _counted(mesh, "all_gather", x, mesh.size):
         dist.all_gather(parts, x, group=mesh.group)
     return torch.cat(parts, 0).to(t.device)
 
@@ -593,7 +642,7 @@ def _all_reduce(t: torch.Tensor, mesh: Mesh | None, op) -> torch.Tensor:
     if mesh is None:
         return t
     x = t.to(mesh.device, copy=True)
-    with _counted(mesh, "all_reduce", x):
+    with _counted(mesh, "all_reduce", x, mesh.size):
         dist.all_reduce(x, op=op, group=mesh.group)
     return x.to(t.device)
 
@@ -654,6 +703,12 @@ def _rank_main(rank: int, world: int, root: str, backend: str, device: str, fn,
             torch.set_num_threads(1)
         out = fn(make_mesh(dev, mesh_shape, mesh_names), *args)
         torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    except BaseException:
+        # torch.multiprocessing reports the first rank that failed; a rank
+        # whose peer failed first then fails too, on a closed connection
+        print(f"rank {rank} of {world} failed:\n{traceback.format_exc()}", file=sys.stderr,
+              flush=True)
+        raise
     finally:
         dist.destroy_process_group()
 

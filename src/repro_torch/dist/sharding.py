@@ -28,6 +28,12 @@ of which each rank stores the real experts only (the padded ones receive no
 token and have zero weights).  ``Model`` reads ``model.placement`` to
 gather what FSDP split before a layer runs (``layer_weight``);
 ``gather_model`` is the inverse of ``shard_model`` (the tests' view).
+
+A decode cache is held as ``cache_shardings`` places it: ``local_shape``
+gives a rank's part of any plan's leaf (``Model.cache_plan``), and
+``cache_heads`` the run of kv or SSM heads that the rank's cache holds.
+``placed_shape`` gives any rank's part of a parameter from the mesh's
+sizes alone, the dry run's per-rank bytes (``launch/specs.py``).
 """
 from __future__ import annotations
 
@@ -183,6 +189,31 @@ def cache_shardings(cache_shapes: dict, mesh, *, batch: int) -> dict:
 
 
 # ---------------------------------------------------------------------- #
+# a plan's parts on each rank                                            #
+# ---------------------------------------------------------------------- #
+def local_shape(shape: tuple, spec: tuple, mesh) -> tuple:
+    """The shape of each rank's part of a tensor of ``shape`` placed by
+    ``spec``: every split dim divided by its axes' size."""
+    sizes = _sizes(mesh)
+    return tuple(d // _size(sizes, e) for d, e in zip(shape, spec))
+
+
+def cache_heads(n: int, mesh=None) -> tuple[int, int]:
+    """(first, count) of the heads that this rank's part of a decode cache
+    holds, for a head axis of ``n`` that ``cache_shardings`` puts on "model"
+    (the K/V leaves' kv heads, ``ssm_state``'s heads): the rank's run where
+    ``n`` divides the "model" axis, all of them where the plan replicates
+    the axis (or without a mesh; ``mesh``: the current one by default)."""
+    mesh = dist_api.current() if mesh is None else mesh
+    if mesh is None or "model" not in mesh.shape:
+        return 0, n
+    if _fit(["model"], (n,), _sizes(mesh))[0] is None:
+        return 0, n
+    per = n // mesh.shape["model"]
+    return dist_api.axis_index("model", mesh) * per, per
+
+
+# ---------------------------------------------------------------------- #
 # the port's parameters on the reference's paths                         #
 # ---------------------------------------------------------------------- #
 _ATTN = ("wq", "wk", "wv", "wo")
@@ -274,6 +305,25 @@ def placements(model, mesh, fsdp: bool = False) -> dict:
         out[name] = Placement(shape=tuple(p.shape), model_dim=model_dim, data_dim=data_dim,
                               owner=owner, experts=experts and model_dim is not None)
     return out
+
+
+def placed_shape(pl: Placement, mesh, didx: int, midx: int) -> tuple:
+    """The shape of the part of a per-layer tensor that the rank at data
+    index ``didx`` and model index ``midx`` of ``mesh`` (a Mesh or a dict of
+    axis sizes) holds: ``local_slice``'s, from the sizes alone."""
+    sizes = _sizes(mesh)
+    if pl.owner is not None and didx != pl.owner:
+        return (0,)
+    shape = list(pl.shape)
+    if pl.model_dim is not None:
+        if pl.experts:
+            _, lo, hi = expert_range(pl.shape[0], sizes["model"], midx)
+            shape[0] = hi - lo
+        else:
+            shape[pl.model_dim] //= sizes["model"]
+    if pl.data_dim is not None:
+        shape[pl.data_dim] //= _size(sizes, _mesh_axes(sizes)[0])
+    return tuple(shape)
 
 
 def _bounds(n: int, parts: int, idx: int) -> tuple[int, int]:

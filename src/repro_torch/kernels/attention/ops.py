@@ -7,17 +7,32 @@ returns that function's gradient.  The backward is the one place where the
 plain version runs on a card path: K5 has no backward kernel yet (ROADMAP
 queue 2), and the JAX package has none either, it trains by differentiating
 its plain ``chunked_attention``.  The forward never gives way to it.
+
+Meta tensors (the dry run, ``launch/dryrun.py``) launch nothing: the call
+returns the output's shape and ``kernels.cost.record``s the kernel's work
+(``k5_work``), which the dry run's op counter adds to what it counts.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.attention import kernel, ref
+
+
+def _meta(q, k, v, opts):
+    b, h, s, d = q.shape
+    pairs = cost.visible_pairs(s, opts["causal"], opts["window"], opts["prefix_len"])
+    cost.record("flash_attention", cost.k5_work(b, h, k.shape[1], s, d, q.element_size(),
+                                                pairs))
+    return torch.empty_like(q)
 
 
 def _forward(q, k, v, opts):
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, **opts)
+    if q.device.type == "meta":
+        return _meta(q, k, v, opts)
     return kernel.flash_attention_cuda(q, k, v, **opts)
 
 
@@ -47,7 +62,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention over q (B, H, S, D), k and v (B, KV, S, D) -> (B, H, S, D).
 
     The device of the inputs decides: CPU tensors run the plain version,
-    CUDA tensors launch the kernel (one launch) or raise.  Where autograd
+    CUDA tensors launch the kernel (one launch) or raise, meta tensors
+    record its work and compute nothing.  Where autograd
     records (grad mode on, an input requiring grad) the backward is the
     plain version's gradient; without it the call is exactly the launch.
     """

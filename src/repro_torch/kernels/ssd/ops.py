@@ -8,18 +8,36 @@ plain version runs on a card path: K6 has no backward kernel yet (ROADMAP
 queue 2), and the JAX package trains by differentiating its plain chunk loop
 (``repro.models.ssm``, ``use_pallas=False``).  The forward never gives way
 to it.
+
+Meta tensors (the dry run, ``launch/dryrun.py``) launch nothing: the call
+returns y's shape (and the state's) and ``kernels.cost.record``s the
+kernel's work (``k6_work``), which the dry run's op counter adds to what it
+counts.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.ssd import kernel, ref
+
+
+def _meta(args, chunk, return_state):
+    x, _, _, b_mat = args[:4]
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    cost.record("ssd_chunk", cost.k6_work(bsz, s, h, p, g, n, chunk, x.element_size()))
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    state = torch.empty((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    return (y, state) if return_state else y
 
 
 def _forward(args, chunk, return_state):
     if args[0].device.type == "cpu":
         y, h = ref.ssd_chunked_ref(*args, chunk)
         return (y, h) if return_state else y
+    if args[0].device.type == "meta":
+        return _meta(args, chunk, return_state)
     return kernel.ssd_chunk_cuda(*args, chunk, return_state)
 
 
@@ -55,7 +73,8 @@ def ssd_forward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     Returns y (B, S, H, P) f32, and with ``return_state`` also the final
     states (B, H, N, P) f32.  CPU tensors run the plain version, which widens
     its inputs to f32 itself; CUDA tensors launch the kernel (three CUDA
-    kernels, counted as one launch) or raise.  Where autograd records (grad
+    kernels, counted as one launch) or raise; meta tensors record its work
+    and compute nothing.  Where autograd records (grad
     mode on, an input requiring grad) the backward is the plain version's
     gradient; without it the call is exactly the launch.
     """

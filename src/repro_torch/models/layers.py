@@ -16,7 +16,13 @@ shard routes its own tokens, each model rank computes its run of the
 e_pad padded experts, the combine is one sum over "model" in the compute
 type, aux the mean over the data axes).  A weight that a layer cannot use
 split (the reference's fallbacks) is gathered first: every rank then
-computes the same thing.
+computes the same thing.  Serving keeps the decode cache as
+``cache_shardings`` places it (``sharding.cache_heads``): prefill's
+attention hands over the k and v of the cache's heads, and
+``attention_decode`` is the one-token mirror of ``_attention_sharded``,
+reading the rank's kv heads from the cache (its own where the plan splits
+them, its slice of a replicated cache; on the fallback the cache is
+gathered for the layer).
 
 bf16 arithmetic follows the reference op by op: ``silu`` is ``x *
 sigmoid(x)``, two roundings, as ``jax.nn.silu`` is written.
@@ -28,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.dist import api as dist_api
-from repro_torch.dist.sharding import expert_range, split_on
+from repro_torch.dist.sharding import cache_heads, expert_range, split_on
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention.ref import NEG_INF
 
@@ -77,15 +83,16 @@ def qkv(x: torch.Tensor, p: AttnParams, positions: torch.Tensor, cfg):
     return q, k, v
 
 
-def _attention_sharded(x: torch.Tensor, p: AttnParams, positions: torch.Tensor, cfg,
-                       layer_window: int, prefix_len: int) -> torch.Tensor | None:
-    """Head-parallel attention on the current mesh's "model" axis (the
-    reference's shard_map): rank m computes its h/mp query heads and the
-    contiguous kv heads they read, ``start = m·h_loc·kvh // h`` and
-    ``kv_loc = max(1, h_loc // group)``, through K5, then its rows of
-    ``wo``; one sum over "model" joins the ranks.  None where the reference
-    falls back (mp 1, h % mp, a slice that is not contiguous)."""
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+def _head_split(cfg) -> tuple[int, int, int] | None:
+    """(h_loc, kv_loc, start) of the head-parallel attention on the current
+    mesh's "model" axis (the reference's shard_map): rank m computes its
+    h/mp query heads and the contiguous kv heads they read, ``start =
+    m·h_loc·kvh // h`` and ``kv_loc = max(1, h_loc // group)``.  None where
+    the reference falls back (no mesh, mp 1, h % mp, a slice that is not
+    contiguous)."""
+    if dist_api.current() is None:
+        return None
+    h, kvh = cfg.n_heads, cfg.n_kv_heads
     mp = dist_api.axis_size("model")
     if mp == 1 or h % mp:
         return None
@@ -94,23 +101,64 @@ def _attention_sharded(x: torch.Tensor, p: AttnParams, positions: torch.Tensor, 
     kv_loc = max(1, h_loc // group)
     if h_loc % kv_loc or not (group % h_loc == 0 or h_loc % group == 0):
         return None
+    return h_loc, kv_loc, (dist_api.axis_index("model") * h_loc * kvh) // h
+
+
+def _kv_cols(w: torch.Tensor, cfg, count: int, first: int) -> torch.Tensor:
+    """The columns of kv heads ``first`` .. ``first + count`` - 1 of wk / wv
+    on this rank: its own slice where the plan's is exactly those heads,
+    else cut from the whole weight (gathered where the plan split it)."""
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim
     midx = dist_api.axis_index("model")
-    start = (midx * h_loc * kvh) // h
+    if split_on(w, kvh * hd) and w.shape[-1] == count * hd and first == midx * count:
+        return w                        # the plan's slice is these heads
+    full = (dist_api.gather_shards(w, "model", w.dim() - 1) if split_on(w, kvh * hd)
+            else dist_api.copy_to(w, "model"))
+    return full[:, first * hd:(first + count) * hd]
+
+
+def _rank_kv(xin: torch.Tensor, p: AttnParams, positions: torch.Tensor, cfg,
+             kv_loc: int, start: int, cache: bool = True) -> tuple:
+    """The head-parallel attention's keys and values on this rank: (k, v)
+    (B, S, kv_loc, hd) of the kv heads its query heads read (k rotated), and
+    (k, v) of the heads its decode cache holds (``cache_heads``).  Where
+    the cache plan splits the kv heads the two are the same heads; where it
+    replicates them (kvh not a multiple of mp) the rank projects every kv
+    head for its cache and the attention takes its slice of them.  Without
+    ``cache`` (training) only the attention's heads are projected."""
+    b, s, _ = xin.shape
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim
+    lo, n = cache_heads(kvh) if cache else (start, kv_loc)
+    first, count = (start, kv_loc) if (lo, n) == (start, kv_loc) else (0, kvh)
+    k = apply_rope((xin @ _kv_cols(p.wk, cfg, count, first)).reshape(b, s, count, hd),
+                   positions, cfg.rope_theta)
+    v = (xin @ _kv_cols(p.wv, cfg, count, first)).reshape(b, s, count, hd)
+
+    def heads(a, lo_, n_):
+        return a[:, :, lo_ - first:lo_ - first + n_]
+    return ((heads(k, start, kv_loc), heads(v, start, kv_loc)),
+            (heads(k, lo, n), heads(v, lo, n)))
+
+
+def _attention_sharded(x: torch.Tensor, p: AttnParams, positions: torch.Tensor, cfg,
+                       layer_window: int, prefix_len: int,
+                       kv_out: list | None = None) -> torch.Tensor | None:
+    """Head-parallel attention on the current mesh's "model" axis
+    (``_head_split``): the rank's query heads and the kv heads they read
+    through K5, then its rows of ``wo``; one sum over "model" joins the
+    ranks.  ``kv_out`` receives the (k, v) of the rank's decode cache.  None
+    where the reference falls back."""
+    split = _head_split(cfg)
+    if split is None:
+        return None
+    h_loc, kv_loc, start = split
     b, s, _ = x.shape
     xin = dist_api.copy_to(x, "model")
-
-    def kv_cols(w):
-        """This rank's kv heads' columns of wk / wv."""
-        if split_on(w, kvh * hd) and w.shape[-1] == kv_loc * hd and start == midx * kv_loc:
-            return w                    # the plan's slice is the rank's kv heads
-        full = (dist_api.gather_shards(w, "model", w.dim() - 1) if split_on(w, kvh * hd)
-                else dist_api.copy_to(w, "model"))
-        return full[:, start * hd:(start + kv_loc) * hd]
-
-    q = apply_rope((xin @ p.wq).reshape(b, s, h_loc, hd), positions, cfg.rope_theta)
-    k = apply_rope((xin @ kv_cols(p.wk)).reshape(b, s, kv_loc, hd), positions,
+    q = apply_rope((xin @ p.wq).reshape(b, s, h_loc, cfg.head_dim), positions,
                    cfg.rope_theta)
-    v = (xin @ kv_cols(p.wv)).reshape(b, s, kv_loc, hd)
+    (k, v), cached = _rank_kv(xin, p, positions, cfg, kv_loc, start, kv_out is not None)
+    if kv_out is not None:
+        kv_out.extend(cached)
     out = attn_ops.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=cfg.causal, window=layer_window, softcap=cfg.attn_softcap,
@@ -124,23 +172,32 @@ def _whole(w: torch.Tensor, full: int, dim: int) -> torch.Tensor:
     return dist_api.gather_copies(w, "model", dim % w.dim()) if split_on(w, full, dim) else w
 
 
+def _whole_attn(p: AttnParams, cfg) -> AttnParams:
+    hq, hk = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    return AttnParams(_whole(p.wq, hq, -1), _whole(p.wk, hk, -1), _whole(p.wv, hk, -1),
+                      _whole(p.wo, hq, 0))
+
+
 def attention_block(x: torch.Tensor, p: AttnParams, positions: torch.Tensor, cfg,
                     layer_window: int = 0, prefix_len: int = 0,
-                    kv: tuple | None = None) -> torch.Tensor:
+                    kv_out: list | None = None) -> torch.Tensor:
     """proj -> rope -> attention (K5 on the card) -> out proj.
 
-    ``kv`` takes projections already made by ``qkv`` (prefill reuses them
-    for its cache).  Under a mesh: ``_attention_sharded``, or, where it
-    falls back, the whole attention on every rank."""
+    ``kv_out`` receives the rotated k and the v (B, S, kv, hd) of the heads
+    that the decode cache holds (prefill's cache): all of them on one
+    device, the rank's ``cache_heads`` under a mesh.  Under a mesh:
+    ``_attention_sharded``, or, where it falls back, the whole attention on
+    every rank."""
     if dist_api.current() is not None:
-        out = _attention_sharded(x, p, positions, cfg, layer_window, prefix_len)
+        out = _attention_sharded(x, p, positions, cfg, layer_window, prefix_len, kv_out)
         if out is not None:
             return out
-        hq, hk = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
-        p = AttnParams(_whole(p.wq, hq, -1), _whole(p.wk, hk, -1), _whole(p.wv, hk, -1),
-                       _whole(p.wo, hq, 0))
+        p = _whole_attn(p, cfg)
     b, s, _ = x.shape
-    q, k, v = kv if kv is not None else qkv(x, p, positions, cfg)
+    q, k, v = qkv(x, p, positions, cfg)
+    if kv_out is not None:
+        lo, n = cache_heads(cfg.n_kv_heads)
+        kv_out.extend((k[:, :, lo:lo + n], v[:, :, lo:lo + n]))
     out = attn_ops.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=cfg.causal, window=layer_window, softcap=cfg.attn_softcap,
@@ -170,6 +227,50 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkrs,bskd->bkrd", p, v_cache.float())
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def attention_decode(x: torch.Tensor, p: AttnParams, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: int, cfg, window: int = 0) -> torch.Tensor:
+    """One token's attention sub-block: x (B, 1, d) normed -> (B, 1, d).
+    Writes the token's rotated k and its v at ``pos`` of the caches (B, Smax,
+    kv, hd) in place; they hold the heads of ``cache_heads``.
+
+    Under a mesh where the attention is head-parallel (``_head_split``), the
+    one-token mirror of ``_attention_sharded``: the rank's query heads
+    against its kv heads of the cache (the cache's own heads where the plan
+    splits them, its slice of a replicated cache), ``decode_attention``'s
+    window and softcap, its rows of ``wo``, one sum over "model".
+    Elsewhere every head on every rank, the cache gathered over "model" for
+    the layer where the plan split it."""
+    b = x.shape[0]
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim
+    positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+    cur = torch.full((b,), pos + 1, dtype=torch.long, device=x.device)
+    split = _head_split(cfg)
+    if split is not None:
+        h_loc, kv_loc, start = split
+        xin = dist_api.copy_to(x, "model")
+        q = apply_rope((xin @ p.wq).reshape(b, 1, h_loc, hd), positions, cfg.rope_theta)
+        _, (k, v) = _rank_kv(xin, p, positions, cfg, kv_loc, start)
+        k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+        lo, _ = cache_heads(kvh)
+        ks = k_cache[:, :, start - lo:start - lo + kv_loc]
+        vs = v_cache[:, :, start - lo:start - lo + kv_loc]
+        out = decode_attention(q, ks, vs, cur, softcap=cfg.attn_softcap, window=window)
+        return dist_api.reduce_from(out.reshape(b, 1, -1) @ p.wo, "model")
+    if dist_api.current() is not None:
+        p = _whole_attn(p, cfg)
+    q, k, v = qkv(x, p, positions, cfg)
+    lo, n = cache_heads(kvh)
+    k_cache[:, pos] = k[:, 0, lo:lo + n].to(k_cache.dtype)
+    v_cache[:, pos] = v[:, 0, lo:lo + n].to(v_cache.dtype)
+    ks, vs = k_cache, v_cache
+    if n != kvh:                        # the plan split the cache's kv heads
+        ks = dist_api.all_gather(k_cache, "model", 2)
+        vs = dist_api.all_gather(v_cache, "model", 2)
+    out = decode_attention(q, ks, vs, cur, softcap=cfg.attn_softcap, window=window)
+    return out.reshape(b, 1, -1) @ p.wo
 
 
 class MLPParams(NamedTuple):

@@ -10,8 +10,13 @@ the reference's is.
 Under a mesh the plan splits ``in_proj``'s columns and ``out_proj``'s rows
 on "model", but the block's concatenated ``[z, xBC, dt]`` output does not
 split along head boundaries and its gated norm reduces over all of
-``d_inner``: ``ssm_block`` gathers both first, and every model rank
-computes the whole block (K6 on all heads) on its data shard.
+``d_inner``: ``whole_params`` gathers both first, and every model rank
+computes the whole block (K6 on all heads) on its data shard.  The decode
+cache follows ``cache_shardings``: ``ssm_state``'s head axis on "model"
+(``cache_heads``), the conv tail split on the batch only.  Prefill
+stores the rank's heads of the final state; a decode step updates only
+the rank's heads' state and gathers their ``y`` (B × d_inner, a few KB)
+over "model" before the gated norm.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import api as dist_api
+from repro_torch.dist.sharding import cache_heads
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models.layers import _whole, silu
 
@@ -59,13 +66,20 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, gain: torch.Tensor,
     return (g32 * scale * (1.0 + gain.float())).to(y.dtype)
 
 
+def whole_params(p: SSMParams, cfg) -> SSMParams:
+    """``p`` with ``in_proj`` and ``out_proj`` whole (gathered over "model"
+    where the plan split them; as they are otherwise)."""
+    d_proj = 2 * cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state + cfg.ssm_heads
+    return p._replace(in_proj=_whole(p.in_proj, d_proj, -1),
+                      out_proj=_whole(p.out_proj, cfg.d_inner, 0))
+
+
 def ssm_block(x: torch.Tensor, p: SSMParams, cfg, return_cache: bool = False):
-    """Prefill forward. x (B, S, d) -> (B, S, d) [, SSMCache]."""
+    """Prefill forward. x (B, S, d) -> (B, S, d) [, SSMCache]; the cache's
+    state holds the heads of ``cache_heads``."""
     bsz, s, _ = x.shape
     h, pdim, n, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
-    d_proj = 2 * cfg.d_inner + 2 * g * n + h
-    p = p._replace(in_proj=_whole(p.in_proj, d_proj, -1),
-                   out_proj=_whole(p.out_proj, cfg.d_inner, 0))
+    p = whole_params(p, cfg)
     z, xs, b, c, dt = _split_proj(cfg, x @ p.in_proj)
 
     xbc_raw = torch.cat([xs, b, c], dim=-1)              # (B, S, conv_dim)
@@ -97,7 +111,8 @@ def ssm_block(x: torch.Tensor, p: SSMParams, cfg, return_cache: bool = False):
         # the conv cache holds the RAW (pre-activation) xBC tail, the
         # window of ssm_decode_step
         conv_tail = xbc_raw[:, s - (convw - 1):s] if convw > 1 else xbc_raw[:, :0]
-        return out_proj, SSMCache(conv=conv_tail, state=h_fin)
+        lo, n_loc = cache_heads(h)
+        return out_proj, SSMCache(conv=conv_tail, state=h_fin[:, lo:lo + n_loc])
     return out_proj
 
 
@@ -111,9 +126,12 @@ def ssm_cache_init(cfg, batch: int, dtype, device=None) -> SSMCache:
 
 def ssm_decode_step(x: torch.Tensor, p: SSMParams, cache: SSMCache, cfg
                     ) -> tuple[torch.Tensor, SSMCache]:
-    """One-token decode. x (B, 1, d) -> (B, 1, d); O(1) state update."""
+    """One-token decode. x (B, 1, d) -> (B, 1, d); O(1) state update of the
+    heads that ``cache.state`` holds (``cache_heads``), their y gathered
+    over "model" where the plan split them."""
     bsz = x.shape[0]
     h, pdim, n, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+    p = whole_params(p, cfg)
     z, xs, b, c, dt = _split_proj(cfg, x[:, 0] @ p.in_proj)
 
     xbc = torch.cat([xs, b, c], dim=-1)                  # (B, conv_dim)
@@ -123,20 +141,24 @@ def ssm_decode_step(x: torch.Tensor, p: SSMParams, cache: SSMCache, cfg
     new_conv = window[:, 1:]
 
     d_in = cfg.d_inner
+    lo, h_loc = cache_heads(h)
+    heads = slice(lo, lo + h_loc)
     xs, b, c = torch.split(xbc, [d_in, g * n, g * n], dim=-1)
-    xs = xs.reshape(bsz, h, pdim)
+    xs = xs.reshape(bsz, h, pdim)[:, heads]
     rep = h // g
-    b = b.reshape(bsz, g, n).repeat_interleave(rep, dim=1)   # (B, H, N)
-    c = c.reshape(bsz, g, n).repeat_interleave(rep, dim=1)
-    dt = _softplus(dt.float() + p.dt_bias)                # (B, H)
-    a = -torch.exp(p.a_log.float())
+    b = b.reshape(bsz, g, n).repeat_interleave(rep, dim=1)[:, heads]   # (B, H_loc, N)
+    c = c.reshape(bsz, g, n).repeat_interleave(rep, dim=1)[:, heads]
+    dt = _softplus(dt.float() + p.dt_bias)[:, heads]      # (B, H_loc)
+    a = -torch.exp(p.a_log.float())[heads]
 
-    decay = torch.exp(dt * a)[..., None, None]            # (B, H, 1, 1)
+    decay = torch.exp(dt * a)[..., None, None]            # (B, H_loc, 1, 1)
     upd = dt[..., None, None] * b[..., None] * xs[:, :, None, :]
-    state = cache.state * decay + upd                     # (B, H, N, P)
+    state = cache.state * decay + upd                     # (B, H_loc, N, P)
     y = torch.einsum("bhn,bhnp->bhp", c.float(), state)
-    y = y + p.d_skip[None, :, None] * xs
-    y = y.reshape(bsz, d_in).to(x.dtype)
+    y = y + p.d_skip[heads][None, :, None] * xs
+    y = y.reshape(bsz, h_loc * pdim).to(x.dtype)
+    if h_loc != h:
+        y = dist_api.all_gather(y, "model", 1)
     y = _gated_norm(y, z, p.norm, cfg.norm_eps)
     out = (y @ p.out_proj)[:, None]
     return out, SSMCache(conv=new_conv, state=state)

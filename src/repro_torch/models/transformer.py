@@ -20,7 +20,7 @@ here each layer is a submodule of its own and the scan is a Python loop.
 Every attention runs through ``layers.attention_block``: K5 on the card,
 its plain version on the CPU.  Prefill fills each layer's KV cache from
 the projections its attention used; decode attends over the cache in plain
-torch, as the reference does.
+torch (``layers.attention_decode``), as the reference does.
 
 Parameters are kept in ``param_dtype`` (f32 masters).  Like the
 reference's ``_cast_tree``, every float parameter enters the compute in
@@ -55,6 +55,19 @@ gives the rank's share of the global gradient: ``train.step`` sums them
 over "data".  The mesh is captured where a checkpointed body starts and set
 again inside it, so that a recompute in the backward (on the autograd
 engine's own thread on the card) runs on the same mesh.
+
+Serving under a mesh (``with dist_api.use_mesh(mesh): model.prefill(batch,
+max_len)``, then ``model.decode_step(cache, tokens)``): ``prefill`` takes
+the global batch and computes on the rank's rows (``sharding.shard_batch``);
+its cache is the rank's part of ``cache_shardings``' plan (``cache_init``:
+the batch on "data", kv heads and ``ssm_state``'s heads on "model" where
+they divide), and ``decode_step`` takes the rank's tokens (B_loc, 1), as
+the logits of both are the rank's data shard's, whole over the vocabulary
+(gathered where the head is vocab-split).  The attention is head-parallel
+(K5 on the rank's heads in prefill, ``attention_decode`` on them in
+decode), the MLP and the MoE as in training, the SSM blocks whole on every
+rank with the state's heads split (``models/ssm.py``).  Serving keeps the
+SSM blocks' gathered ``in_proj`` / ``out_proj`` with its cast copies.
 """
 from __future__ import annotations
 
@@ -69,9 +82,8 @@ from repro_torch.dist import api as dist_api, sharding
 from repro_torch.dist.sharding import split_on
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (AttnParams, MLPParams, MoEParams, apply_rope,
-                                       attention_block, decode_attention, mlp_block,
-                                       moe_block, qkv, rms_norm)
+from repro_torch.models.layers import (AttnParams, MLPParams, MoEParams, attention_block,
+                                       attention_decode, mlp_block, moe_block, rms_norm)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encoder", "vlm")
 ATTN_FAMILIES = ("dense", "moe", "encoder", "vlm")
@@ -282,6 +294,10 @@ class Model(nn.Module):
             cd = _dtype(self.cfg.compute_dtype)
             self._cw = self._weights(
                 lambda p: None if p is None else self._placed(p.detach().to(cd), p))
+            if self.placement is not None and not self.attention:
+                # the SSM blocks compute from whole projections: gather once
+                self._cw.layers = [(ln1, ssm_mod.whole_params(sp, self.cfg))
+                                   for ln1, sp in self._cw.layers]
         return self._cw
 
     def _weights(self, c, layers: bool = True) -> SimpleNamespace:
@@ -390,17 +406,11 @@ class Model(nn.Module):
 
     def _attn_block(self, x, blk, positions, window, prefix_len, kv_out=None):
         """Attention (K5 on the card) and feed-forward with their residuals:
-        (x, aux or None); ``kv_out`` receives the (k, v) the attention used
-        (prefill's cache)."""
+        (x, aux or None); ``kv_out`` receives the (k, v) of the heads the
+        decode cache holds (prefill's cache)."""
         cfg = self.cfg
         h = rms_norm(x, blk.ln1, cfg.norm_eps)
-        if kv_out is None:
-            x = x + attention_block(h, blk.attn, positions, cfg, window, prefix_len)
-        else:
-            q, k, v = qkv(h, blk.attn, positions, cfg)
-            kv_out.extend((k, v))
-            x = x + attention_block(h, blk.attn, positions, cfg, window, prefix_len,
-                                    kv=(q, k, v))
+        x = x + attention_block(h, blk.attn, positions, cfg, window, prefix_len, kv_out=kv_out)
         out, aux = self._ffn(rms_norm(x, blk.ln2, cfg.norm_eps), blk)
         return x + out, aux
 
@@ -551,49 +561,59 @@ class Model(nn.Module):
     # ------------------------------------------------------------------ #
     # serving: prefill + decode                                          #
     # ------------------------------------------------------------------ #
-    def cache_init(self, batch: int, max_len: int) -> dict:
+    def cache_shapes(self, batch: int, max_len: int) -> dict:
+        """Name -> (shape, dtype) of every leaf of the whole decode cache
+        (the reference's ``cache_init``)."""
         cfg = self.cfg
         cd = _dtype(cfg.compute_dtype)
-        dev = self.device
-        cache: dict = {"pos": 0}
         if self.attention:
             shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-            cache["k"] = torch.zeros(shape, dtype=cd, device=dev)
-            cache["v"] = torch.zeros(shape, dtype=cd, device=dev)
-            return cache
+            return {"k": (shape, cd), "v": (shape, cd)}
         conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
-        cache["ssm_conv"] = torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1, conv_dim),
-                                        dtype=cd, device=dev)
-        cache["ssm_state"] = torch.zeros((cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_state,
-                                          cfg.ssm_head_dim), dtype=torch.float32, device=dev)
+        out = {"ssm_conv": ((cfg.n_layers, batch, cfg.ssm_conv - 1, conv_dim), cd),
+               "ssm_state": ((cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_state,
+                              cfg.ssm_head_dim), torch.float32)}
         if self.shared is not None:
             napp = cfg.n_layers // cfg.shared_attn_every
             shape = (napp, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-            cache["shared_k"] = torch.zeros(shape, dtype=cd, device=dev)
-            cache["shared_v"] = torch.zeros(shape, dtype=cd, device=dev)
-        return cache
+            out.update(shared_k=(shape, cd), shared_v=(shape, cd))
+        return out
 
-    def _serving(self) -> None:
-        if self.placement is not None:
-            raise NotImplementedError("prefill and decode of a model sharded over a mesh "
-                                      "(cache_shardings' placement) are ROADMAP queue 1 "
-                                      "item 13's rest")
+    def cache_plan(self, batch: int, max_len: int, mesh) -> dict:
+        """Name -> (this rank's shape, dtype) of every cache leaf under
+        ``cache_shardings`` on ``mesh`` (``mesh`` a Mesh or a dict of axis
+        sizes; the whole shapes without one)."""
+        shapes = self.cache_shapes(batch, max_len)
+        if mesh is None:
+            return shapes
+        plan = sharding.cache_shardings({k: s for k, (s, _) in shapes.items()}, mesh,
+                                        batch=batch)
+        return {k: (sharding.local_shape(s, plan[k], mesh), dt) for k, (s, dt) in shapes.items()}
+
+    def cache_init(self, batch: int, max_len: int) -> dict:
+        """The zero decode cache for ``batch`` sequences of up to ``max_len``
+        positions; for a model sharded over the current mesh, this rank's
+        part of ``cache_shardings``' plan (``batch`` the global batch)."""
+        mesh = dist_api.current() if self.placement is not None else None
+        cache: dict = {"pos": 0}
+        for k, (shape, dt) in self.cache_plan(batch, max_len, mesh).items():
+            cache[k] = torch.zeros(shape, dtype=dt, device=self.device)
+        return cache
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
         """One decode step. tokens (B, 1) -> logits (B, V); the cache is
-        updated in place and returned."""
-        self._serving()
+        updated in place and returned.  Under a mesh ``tokens`` are the
+        rank's data shard's (B_loc, 1), as prefill's logits are."""
+        self._check_mesh()
         cfg = self.cfg
         w = self.weights()
         x = self.embed_tokens(tokens)                     # (B, 1, d)
         pos = int(cache["pos"])
-        b = x.shape[0]
-        positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
 
         def attn(x, blk, k_cache, v_cache, window):
-            x = x + self._attn_decode(rms_norm(x, blk.ln1, cfg.norm_eps), blk.attn, k_cache,
-                                      v_cache, pos, positions, window)
+            x = x + attention_decode(rms_norm(x, blk.ln1, cfg.norm_eps), blk.attn, k_cache,
+                                     v_cache, pos, cfg, window)
             return x + self._ffn(rms_norm(x, blk.ln2, cfg.norm_eps), blk)[0]
 
         for idx, layer in enumerate(w.layers):
@@ -615,32 +635,21 @@ class Model(nn.Module):
         cache["pos"] = pos + 1
         return self.logits(x)[:, 0], cache
 
-    def _attn_decode(self, h, ap, k_cache, v_cache, pos, positions, window):
-        """One token's attention; writes its k and v at ``pos`` in place."""
-        cfg = self.cfg
-        b = h.shape[0]
-        bq = apply_rope((h @ ap.wq).reshape(b, 1, cfg.n_heads, cfg.head_dim),
-                        positions, cfg.rope_theta)
-        bk = apply_rope((h @ ap.wk).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim),
-                        positions, cfg.rope_theta)
-        bv = (h @ ap.wv).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
-        k_cache[:, pos] = bk[:, 0].to(k_cache.dtype)
-        v_cache[:, pos] = bv[:, 0].to(v_cache.dtype)
-        cur = torch.full((b,), pos + 1, dtype=torch.long, device=h.device)
-        out = decode_attention(bq, k_cache, v_cache, cur, softcap=cfg.attn_softcap,
-                               window=window)
-        return out.reshape(b, 1, -1) @ ap.wo
-
     @torch.no_grad()
     def prefill(self, batch: dict, max_len: int) -> tuple[torch.Tensor, dict]:
         """Process a full prompt (vlm: patches, then text); returns the last
         position's logits (B, V) and the cache, ``pos`` = the prompt's length
-        with its prefix."""
-        self._serving()
+        with its prefix.  Under a mesh ``batch`` is the global batch: the
+        rank computes on its rows and returns their logits (B_loc, V) and
+        its part of the cache."""
+        self._check_mesh()
+        b_all = next(iter(batch.values())).shape[0]
+        if self.placement is not None:
+            batch = sharding.shard_batch(batch, dist_api.current())
         x, prefix_len = self.embed_inputs(batch)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
-        cache = self.cache_init(b, max_len)
+        cache = self.cache_init(b_all, max_len)
         x, _ = self.backbone(x, positions, prefix_len, cache)
         cache["pos"] = s
         return self.logits(x[:, -1:])[:, 0], cache

@@ -6,7 +6,8 @@ and 3 requests, ``--device cpu``: every number comes back finite, the
 served scores have the request's shape.  The svm grid's holdout accuracy
 is within 0.02 of the JAX engine's on the same arguments (the two builds
 may take other pivots on f32 rounding ties, so their models differ a
-little).  The paths not ported raise ``NotImplementedError``.
+little).  The serve steps of an LM sharded over a mesh run (they raised
+``NotImplementedError`` until serving on a mesh was ported).
 """
 import math
 
@@ -80,8 +81,10 @@ def test_train_svm_grid_matches_the_jax_engine():
 
 
 def test_paths_not_ported_raise():
-    """The serve steps of an LM sharded over a mesh (decode on a mesh is not
-    ported; the compressed all-reduce now is: tests/test_torch_lm_mesh.py)."""
+    """The serve steps of an LM sharded over a mesh raised until serving on a
+    mesh was ported: they now run, and on a one-rank mesh they give the
+    local run's logits bit for bit (tests/test_torch_serve_mesh.py holds
+    them at 2 and 4 ranks against the JAX package)."""
     import torch
 
     from repro_torch.configs.registry import get_config
@@ -90,12 +93,21 @@ def test_paths_not_ported_raise():
     from repro_torch.train.step import make_serve_steps
 
     cfg = get_config("zamba2-1.2b").reduced(compute_dtype="float32")
+    batch = {"tokens": torch.arange(8)[None] % cfg.vocab}
+    step = torch.full((1, 1), 3, dtype=torch.long)
+
+    def run(model, mesh=None):
+        prefill, decode = make_serve_steps(model, 16)
+        with dist_api.use_mesh(mesh):
+            logits, cache = prefill(batch)
+            return logits, decode(cache, step)[0]
+
+    local = run(Model(cfg, device="cpu").init(torch.Generator().manual_seed(0)))
     with dist_api.process_group_mesh("cpu") as mesh:
         model = sharding.shard_model(
             Model(cfg, device="cpu").init(torch.Generator().manual_seed(0)), mesh)
-        _, decode = make_serve_steps(model, 16)
-        with dist_api.use_mesh(mesh), pytest.raises(NotImplementedError, match="item 13"):
-            decode(model.cache_init(1, 16), torch.zeros((1, 1), dtype=torch.long))
+        sharded = run(model, mesh)
+    assert all(torch.equal(a, b) for a, b in zip(sharded, local))
 
 
 def test_entry_points_default_to_the_card():

@@ -265,3 +265,18 @@ def engine_cases(mesh, cases, xte, root):
         res["stats"] = dict(mesh.stats) if mesh is not None else {}
         out[name] = res
     return out
+
+
+def svm_cell(mesh, data, leaf, rank, comp, c_value):
+    """``core.distributed.build_svm_cell(mesh, data=...)`` run for real: the
+    rank's rows of z and the primal residual trace of one C, the cut and the
+    rank's share of the leaves."""
+    from repro_torch.core.compression import CompressionParams
+    from repro_torch.core.distributed import build_svm_cell
+
+    fn, args, in_sh = build_svm_cell(mesh, leaf=leaf, rank=rank, data=data,
+                                     spec=KernelSpec(h=1.0),
+                                     comp=CompressionParams(**comp), c_value=c_value)
+    z, res = fn(*args)
+    return dict(z=z, res=res, cut=args[0].cut, e_leaf=tuple(args[0].e_leaf.shape),
+                spec=in_sh[0]["e_leaf"], rows=args[1].shape[0])
