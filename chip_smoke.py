@@ -8,6 +8,13 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 Phases, each printed on its own lines, none of them allowed to fail:
   1. device    — the card's name and power limit (nvidia-smi);
   2. build     — nvcc builds every CUDA kernel of the port from csrc/;
+  2a. analysis — repro_torch.analysis on the card: the AST lint over
+                 src/repro_torch (and this script, and csrc/), then every
+                 dispatch-level probe (dispatch_check.run_all) on the card,
+                 each under torch.cuda.set_sync_debug_mode("error") (the mesh
+                 check on two gloo CPU ranks); the counts of findings,
+                 suppressions and stale baseline entries, each check's
+                 seconds; any finding outside the baseline fails the run;
   3. kernels   — K1, K4 and K3 against their plain PyTorch versions on the
                  card, at the shapes of the paths below: K1 and K4 on a
                  leaf-D batch, a coupling batch, one scoring block and a
@@ -225,6 +232,7 @@ available or when the repro_torch package is not beside it.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -237,6 +245,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -332,6 +341,10 @@ RESUME_FAIL_IN_PROCESS, RESUME_FAIL_FRESH = 3, 6
 # plain block times the same block, of the largest score: block entries a
 # few f32 ulps apart (K1_ATOL at worst), through the same matmul.
 SCORE_RTOL = 1e-4
+
+# The share of the card memory held before the mesh phases that a garbage
+# collection may free (reference cycles through CUDA tensors).
+GC_FREED_MAX = 0.01
 
 HOLD_CYCLES = 100_000_000    # ~50 ms of spinning at the H100's ~2 GHz clock
 
@@ -2879,10 +2892,27 @@ def lm_mesh_phases(torch, dev):
     # the mesh phases share the card between this process and 2 or 4 ranks:
     # free what the earlier phases left to the garbage collector
     held = torch.cuda.memory_allocated()
+    gc.set_debug(gc.DEBUG_SAVEALL)      # keep what the collection finds, to name it
+    gc.collect()
+    found = [o for o in gc.garbage if isinstance(o, types.FrameType)]
+    frames = collections.Counter(f"{f.f_code.co_name}@{Path(f.f_code.co_filename).name}"
+                                 for f in found)
+    del found
+    gc.garbage.clear()
+    gc.set_debug(0)
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[lm-mesh] this process holds {torch.cuda.memory_allocated()} bytes on the card "
+    after = torch.cuda.memory_allocated()
+    print(f"[lm-mesh] this process holds {after} bytes on the card "
           f"before the mesh phases ({held} before a garbage collection)")
+    if frames:
+        print(f"[lm-mesh] frames the collection found in reference cycles: "
+              f"{frames.most_common(16)}")
+    # nothing of the earlier phases may wait for the collector (reference
+    # cycles through CUDA tensors): it frees under 1% of what is held
+    check(held - after <= GC_FREED_MAX * held,
+          f"a garbage collection freed {held - after} of {held} bytes on the card: "
+          "earlier phases left tensors in reference cycles")
     paths = {}
     cfg = get_config(MOE_ARCH)
     gen = torch.Generator(device=dev)
@@ -3422,12 +3452,41 @@ def k2_against_plain(args, out, rtol, spec, pad_from) -> dict:
     return res
 
 
+def analysis_phase(card: str) -> None:
+    """[analysis]: the lint and the dispatch-level checks on the card."""
+    from repro_torch.analysis import baseline as baseline_mod, dispatch_check
+    from repro_torch.analysis.lint import lint_paths
+
+    t0 = time.perf_counter()
+    lint = lint_paths(base=str(ROOT))
+    seconds = {"lint": time.perf_counter() - t0}
+    trace = dispatch_check.run_all(device="cuda", seconds=seconds)
+    new, suppressed, stale = baseline_mod.partition(lint + trace, baseline_mod.load())
+    print(f"[analysis] {len(lint)} lint and {len(trace)} dispatch-level findings: "
+          f"{len(new)} new, {len(suppressed)} suppressed by the baseline, {len(stale)} "
+          f"stale baseline entries; every probe under set_sync_debug_mode('error')")
+    for name, sec in seconds.items():
+        print(f"[analysis] {name}: {sec:.3f} s on {card}")
+    for f in new:
+        print(f"[analysis] new finding: {f.render()}")
+    for e in stale:
+        print(f"[analysis] stale baseline entry: [{e['rule']}] {e['path']}: "
+              f"{e['line_content']!r}")
+    check(not new, f"[analysis] {len(new)} finding(s) outside the baseline")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    from repro_torch._lazy_import import import_dynamo_aside
+
+    # The profiler and activation checkpoints below would import torch._dynamo
+    # from deep in a phase, and that import leaves the phase's frames, with
+    # its models and tensors, in a reference cycle: import it here instead.
+    import_dynamo_aside()
     import numpy as np
 
     from repro_torch.core import admm as admm_mod, compression
@@ -3472,6 +3531,9 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "Compiling entry" in line:
                 print(f"[build] {name}: {line.split(':', 1)[-1].strip()}")
+
+    # ---- 2a. analysis ------------------------------------------------- #
+    analysis_phase(card)
 
     # ---- 3. kernels against their plain versions, main-path shapes ---- #
     # All-real points at the padded size (no inert pads: pad-pad Gaussian
@@ -4805,7 +4867,7 @@ def main() -> int:
             rbuild(FailureInjector(fail_at=(RESUME_FAIL_FRESH,)).check, ckpt_dir=dirs[1],
                    max_restarts=0)
         except InjectedFailure as e:
-            raised = e
+            raised = repr(e)      # not the exception: its traceback holds the build
         hss_c, st_c = rbuild(ckpt_dir=dirs[1])
         torch.cuda.synchronize()
         resume_counts = dict(_build.launch_counts)
@@ -4834,7 +4896,7 @@ def main() -> int:
           f"every tensor equal to (a): {eq_b}; checkpoints save {st_b.ckpt_save_s:.3f} s, load "
           f"{st_b.ckpt_load_s:.3f} s, {disk[0]} bytes on disk")
     print(f"[stream-resume] (c) failure at level {RESUME_FAIL_FRESH} with max_restarts=0 raised "
-          f"{type(raised).__name__}; a fresh call resumed_level {st_c.resumed_level}, restarts "
+          f"{raised}; a fresh call resumed_level {st_c.resumed_level}, restarts "
           f"{st_c.restarts}, every tensor equal to (a): {eq_c}; its checkpoints save "
           f"{st_c.ckpt_save_s:.3f} s, load {st_c.ckpt_load_s:.3f} s; {disk[1]} bytes on disk "
           f"after both calls; codec {codec!r} (zstandard importable: {have_zstd}); launches "
@@ -4845,7 +4907,8 @@ def main() -> int:
           f"stream-resume: batches {rep_r.stream_batches}, kernel_evals {rep_r.kernel_evals}")
     check(st_b.restarts == 1 and st_b.resumed_level == RESUME_FAIL_IN_PROCESS and eq_b,
           "stream-resume: the in-process restart is not bit-identical to the uninterrupted build")
-    check(type(raised) is InjectedFailure, f"stream-resume: the failing call raised {raised!r}")
+    check(raised is not None and raised.startswith("InjectedFailure("),
+          f"stream-resume: the failing call raised {raised}")
     check(st_c.resumed_level == RESUME_FAIL_FRESH and st_c.restarts == 0 and eq_c,
           "stream-resume: the fresh call's resume is not bit-identical to the uninterrupted build")
     check(codec == ("zstd" if have_zstd else "raw"), f"stream-resume: codec {codec}")

@@ -544,7 +544,7 @@ class StreamStats:
     ckpt_load_s: float = 0.0
 
 
-def _stream_leaf_batch(spec, xl, xp, r0, rtol, adaptive):
+def _stream_leaf_batch(spec, xl, xp, r0, rtol, adaptive: bool):
     """One node batch of the streamed leaf stage: the diagonal blocks and
     the proxy-sampled row ID, through the same two seams as ``compress``."""
     d = _batched_kernel_block(spec, xl, xl)
@@ -552,7 +552,7 @@ def _stream_leaf_batch(spec, xl, xp, r0, rtol, adaptive):
     return d, u, piv, rks
 
 
-def _stream_level_batch(spec, cp, xp, cm, rk, rtol, adaptive):
+def _stream_level_batch(spec, cp, xp, cm, rk, rtol, adaptive: bool):
     """One node batch of a streamed internal level: the sibling couplings B
     and the candidate -> proxy row ID.  ``cp`` (b, 2·r_prev, f) candidate
     points, ``xp`` (b, 2·r_prev + n_far, f) proxy points, ``cm`` candidate
@@ -566,7 +566,7 @@ def _stream_level_batch(spec, cp, xp, cm, rk, rtol, adaptive):
     return b, piv, t, rks
 
 
-def _stream_root_batch(spec, cp, cm, adaptive):
+def _stream_root_batch(spec, cp, cm, adaptive: bool):
     """The root level stores only the sibling coupling B."""
     rp = cp.shape[1] // 2
     b = _batched_kernel_block(spec, cp[:, :rp], cp[:, rp:])

@@ -9,7 +9,9 @@ inversion (Gillman–Martinsson HBS solver) of K̃_β = K̃ + βI:
 
 O(N r²) to factor once, O(N r) per solve, as batched dense ops per tree
 level through ``torch.linalg`` (Cholesky on the SPD leaf blocks, LU on the
-reduced levels).  The products are ordinary f32 matmuls: the port keeps
+reduced levels), in the ``_ex`` forms that read nothing back to the host:
+a failed block gives NaN / inf, as in the reference, instead of a raise.
+The products are ordinary f32 matmuls: the port keeps
 ``torch.backends.cuda.matmul.allow_tf32`` False (PyTorch's default), so they
 run in full f32 on the card as well.  ``store_dtype="bfloat16"`` stores E
 and G in bf16; the solve widens each factor to f32 as it enters its
@@ -62,6 +64,15 @@ def _eye_like(d: torch.Tensor) -> torch.Tensor:
     return torch.eye(d.shape[-1], dtype=d.dtype, device=d.device).expand_as(d)
 
 
+def _cholesky(a: torch.Tensor) -> torch.Tensor:
+    """Batched Cholesky without the host read of ``info`` that
+    ``linalg.cholesky`` makes to raise on failure (a sync on the card): a
+    block that is not positive definite comes back all NaN, as the
+    reference's ``jsl.cholesky`` returns it."""
+    chol, info = torch.linalg.cholesky_ex(a)
+    return torch.where((info == 0)[..., None, None], chol, torch.nan)
+
+
 def _regularize(s_hat: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
     """Ŝ + diag(1 − mask).  Dead columns of a masked basis U are exact zeros,
     so Ŝ = Uᵀ D⁻¹ U is structurally singular; a unit diagonal on the dead
@@ -75,9 +86,9 @@ def _leaf_factors(d_shift: torch.Tensor, u: torch.Tensor,
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched leaf E, G, D̂ from Cholesky of the shifted diagonal blocks;
     ``mask`` (n_leaf, r) is the adaptive build's skeleton liveness."""
-    chol = torch.linalg.cholesky(d_shift)
+    chol = _cholesky(d_shift)
     dinv_u = torch.cholesky_solve(u, chol)                    # (n, m, r)
-    d_hat = torch.linalg.inv(_regularize(u.transpose(1, 2) @ dinv_u, mask))
+    d_hat = torch.linalg.inv_ex(_regularize(u.transpose(1, 2) @ dinv_u, mask))[0]
     e = dinv_u @ d_hat
     dinv = torch.cholesky_solve(_eye_like(d_shift), chol)
     g = dinv - e @ dinv_u.transpose(1, 2)
@@ -89,9 +100,9 @@ def _level_factors(d_blk: torch.Tensor, u: torch.Tensor,
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched reduced-level E, G, D̂ via LU of the (2r x 2r) assembled blocks;
     ``mask`` (n_k, r_k) regularizes the dead parent skeleton slots."""
-    lu, piv = torch.linalg.lu_factor(d_blk)
+    lu, piv, _ = torch.linalg.lu_factor_ex(d_blk)
     dinv_u = torch.linalg.lu_solve(lu, piv, u)
-    d_hat = torch.linalg.inv(_regularize(u.transpose(1, 2) @ dinv_u, mask))
+    d_hat = torch.linalg.inv_ex(_regularize(u.transpose(1, 2) @ dinv_u, mask))[0]
     e = dinv_u @ d_hat
     dinv = torch.linalg.lu_solve(lu, piv, _eye_like(d_blk))
     g = dinv - e @ dinv_u.transpose(1, 2)
@@ -126,7 +137,7 @@ def factorize(hss: HSSMatrix, beta: float,
             e_leaf=torch.zeros((1, m, 0), dtype=dtype, device=dev),
             g_leaf=torch.zeros((1, m, m), dtype=dtype, device=dev),
             e_lvls=(), g_lvls=(),
-            root_lu=torch.linalg.cholesky(d_shift[0]),
+            root_lu=_cholesky(d_shift[0]),
             root_piv=torch.arange(1, m + 1, dtype=torch.int32, device=dev),
             levels=0, leaf_size=m, beta=beta,
         )
@@ -148,7 +159,7 @@ def factorize(hss: HSSMatrix, beta: float,
         e_lvls.append(e_k)
         g_lvls.append(g_k)
     root = _assemble_next(d_hat, hss.b_mats[K - 1])[0]
-    lu, piv = torch.linalg.lu_factor(root)
+    lu, piv, _ = torch.linalg.lu_factor_ex(root)
     if store_dtype is not None:
         sd = getattr(torch, store_dtype)
         e_leaf, g_leaf = e_leaf.to(sd), g_leaf.to(sd)

@@ -70,7 +70,10 @@ def kernel_matvec_streamed(
 
     Walks the rows in blocks of ``block`` — O(block · n_cols) live memory,
     one kernel-block launch per row block.  ``v`` may be (n_cols,) or
-    (n_cols, k); the product accumulates in f32 (TF32 stays off).
+    (n_cols, k); the product accumulates in f32 (TF32 stays off).  A bf16
+    block and bf16 coefficients are widened as they enter the product (each
+    exact in f32): the reference's bf16×bf16 contraction with
+    ``preferred_element_type=float32``.
     """
-    return torch.cat([kernel_block(spec, x_rows[i:i + block], x_cols) @ v.float()
+    return torch.cat([kernel_block(spec, x_rows[i:i + block], x_cols).float() @ v.float()
                       for i in range(0, x_rows.shape[0], block)], dim=0)

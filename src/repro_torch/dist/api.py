@@ -523,7 +523,7 @@ class _Gather(torch.autograd.Function):
 
 class _FromOwner(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axis, owner, shape, mesh):
+    def forward(ctx, x, axis: str, owner: int, shape: tuple, mesh: Mesh):
         ctx.axis, ctx.owner, ctx.mesh, ctx.local = axis, owner, mesh, x.shape
         mine = axis_index(axis, mesh) == owner
         full = x if mine else torch.zeros(shape, dtype=x.dtype, device=x.device)

@@ -77,7 +77,11 @@ class StepGuard:
         if worker.is_alive():
             raise StepTimeout(f"step {step_no} exceeded deadline of {self.deadline_s}s")
         if errs:
-            raise errs[0]
+            # raised straight from the list: a local holding the exception
+            # would close a cycle (this frame -> exception -> traceback ->
+            # this frame) that keeps the failed step's frames, and every
+            # tensor they hold, alive until the garbage collector runs
+            raise errs.pop()
         dur = time.perf_counter() - t0
         if self.straggler_ratio is not None and self.durations:
             med = statistics.median(self.durations)

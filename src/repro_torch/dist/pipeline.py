@@ -20,7 +20,8 @@ from repro_torch.dist import api as dist_api
 
 
 def pipeline_forward(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
-                     params_local: Any, x: torch.Tensor, mesh, axis: str = "stage"
+                     params_local: Any, x: torch.Tensor, mesh: dist_api.Mesh,
+                     axis: str = "stage"
                      ) -> torch.Tensor:
     """Run the mesh's ``axis`` size of chained ``stage_fn`` applications
     as a pipeline.

@@ -53,13 +53,13 @@ def ssd_chunked_ref(x, dt, a, b_mat, c_mat, d_vec, chunk: int = 16):
         # where(tril, exp(seg), 0), but where seg overflows exp there the
         # reference's gradient is 0 * inf = NaN and this one is 0
         gate = torch.exp(torch.where(tril, seg, torch.full((), -torch.inf, device=x.device)))
-        scores = torch.einsum("bihn,bjhn->bhij", cq, bq) * gate
-        y_intra = torch.einsum("bhij,bjhp->bihp", scores, xq * dtq[..., None])
-        y_state = torch.einsum("bihn,bhnp->bihp", cq * torch.exp(la)[..., None], state)
+        scores = torch.einsum("bihn,bjhn->bhij", cq.float(), bq) * gate
+        y_intra = torch.einsum("bhij,bjhp->bihp", scores.float(), xq * dtq[..., None])
+        y_state = torch.einsum("bihn,bhnp->bihp", cq * torch.exp(la)[..., None], state.float())
         la_tot = la[:, -1]                                # (B, H)
         w = torch.exp(la_tot[:, None] - la) * dtq         # (B, Q, H)
         state = (torch.exp(la_tot)[..., None, None] * state
-                 + torch.einsum("bjhn,bjhp->bhnp", bq * w[..., None], xq))
+                 + torch.einsum("bjhn,bjhp->bhnp", bq * w[..., None], xq.float()))
         ys.append(y_intra + y_state + d_vec[:, None] * xq)
     return torch.cat(ys, dim=1), state
 

@@ -43,6 +43,8 @@ import time
 import numpy as np
 import torch
 
+from repro_torch._lazy_import import import_dynamo_aside
+
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -67,6 +69,7 @@ def profile_device(device: torch.device, fn) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    import_dynamo_aside()          # the profiler's first use imports it
     _sync(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

@@ -78,6 +78,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch._lazy_import import import_dynamo_aside
 from repro_torch.dist import api as dist_api, sharding
 from repro_torch.dist.sharding import split_on
 from repro_torch.models import ssm as ssm_mod
@@ -468,6 +469,8 @@ class Model(nn.Module):
         if self._differentiated():
             if cache is not None:
                 raise ValueError("prefill fills a cache without gradients")
+            if cfg.remat == "block":
+                import_dynamo_aside()     # before checkpoint's first call
             for idx in range(cfg.n_layers):
                 if cfg.remat == "block":
                     x, a = checkpoint(self._train_layer, idx, x, positions, prefix_len, mesh,

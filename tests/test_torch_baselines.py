@@ -24,6 +24,7 @@ from repro.core.kernelfn import KernelSpec as JSpec
 from repro_torch.core import baselines as pb
 from repro_torch.core.kernelfn import KernelSpec
 from repro_torch.data import synthetic
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, C, BETA, N = 1.0, 1.0, 100.0, 512
 Z_ATOL, BIAS_ATOL, SCORE_BAND = 1e-4 * C, 1e-4, 1e-3

@@ -23,6 +23,7 @@ import torch
 from repro.ckpt import checkpoint as jckpt
 from repro_torch.ckpt import checkpoint as tckpt
 from repro_torch.dist import fault
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

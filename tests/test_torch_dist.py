@@ -33,6 +33,7 @@ from repro_torch.core import compression, tree as ttree
 from repro_torch.core.kernelfn import KernelSpec
 from repro_torch.data import synthetic
 from repro_torch.dist import api as dist_api
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 torch.set_float32_matmul_precision("highest")
 

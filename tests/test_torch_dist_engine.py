@@ -46,6 +46,7 @@ from repro_torch.core.engine import HSSSVMEngine as TEngine
 from repro_torch.core.kernelfn import KernelSpec as TSpec
 from repro_torch.dist import api as dist_api
 from repro_torch.launch import serve as tserve, train as ttrain
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 torch.set_float32_matmul_precision("highest")
 

@@ -25,6 +25,7 @@ from repro.core.kernelfn import KernelSpec as JSpec
 from repro.data import synthetic
 from repro_torch.core import tree as ttree
 from repro_torch.dist import api as dist_api
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 torch.set_float32_matmul_precision("highest")
 

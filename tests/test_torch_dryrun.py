@@ -65,6 +65,7 @@ from repro_torch.launch import specs
 from repro_torch.models.transformer import Model
 from repro_torch.roofline import analysis as ra
 from repro_torch.roofline.op_cost import OpCounter
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 MESH = (2, 4)

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 import torch_dist_ranks as ranks
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "examples")
 sys.path.insert(0, EXAMPLES)

@@ -23,6 +23,7 @@ from repro_torch.core import idqr as tidqr
 from repro_torch.core import tree as ttree
 from repro_torch.core.kernelfn import KernelSpec as TSpec
 from repro_torch.data import synthetic as tsyn
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 torch.set_float32_matmul_precision("highest")
 

@@ -12,6 +12,7 @@ import pytest
 
 from repro_torch.core.compression import CompressionParams
 from repro_torch.kernels.compress import kernel as ckern
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LEVELS, LEAF = 12, 256
 PATHS = {

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.attention import kernel as attn_kern
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("d", attn_kern.HEAD_DIMS)

@@ -26,6 +26,7 @@ from repro.kernels.ssd import ref as jssd_ref
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels.ssd import kernel as ssd_kern, ops as ssd_ops, ref as ssd_ref
 from repro_torch.models import ssm
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 K6_RTOL = 1e-4
 ROOT = Path(__file__).resolve().parents[1]

@@ -28,6 +28,7 @@ from repro_torch.core import idqr, kernelfn as tkfn
 from repro_torch.kernels.compress import kernel as ckern, laplacian as lops, ops as cops
 from repro_torch.kernels.compress import ref as cref, verify
 from repro_torch.kernels.gaussian import kernel as gkern, ops as gops
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 torch.set_float32_matmul_precision("highest")
 

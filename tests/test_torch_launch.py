@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 from repro_torch.launch import serve, train
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_TRAIN, BATCH, REQUESTS = 1024, 32, 3
 ACC_GAP = 0.02

@@ -43,6 +43,7 @@ from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.launch import serve
 from repro_torch.models import layers, ssm
 from repro_torch.models.transformer import Model
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LM_ARCHS = ["zamba2-1.2b", "mamba2-780m"]
 

@@ -26,6 +26,7 @@ from repro_torch import convert
 from repro_torch.configs.registry import get_config, list_archs
 from repro_torch.launch import serve
 from repro_torch.models.transformer import Model
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCHS = ["gemma2-9b", "llama3-405b", "paligemma-3b", "hubert-xlarge"]
 DTYPES = [("float32", 1e-4), ("bfloat16", 5e-2)]

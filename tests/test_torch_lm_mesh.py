@@ -55,6 +55,7 @@ from repro_torch.dist import api as dist_api
 from repro_torch.models.transformer import Model
 from repro_torch.train import optim
 from repro_torch.train.step import make_train_step
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 torch.set_float32_matmul_precision("highest")
 

@@ -37,6 +37,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.models import layers
 from repro_torch.models.transformer import Model
 from test_torch_lm_families import DTYPES, _close, runs
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -29,6 +29,7 @@ from repro_torch.core import tree as tree_mod
 from repro_torch.core.compression import CompressionParams as TParams
 from repro_torch.core.engine import HSSSVMEngine as TEngine
 from repro_torch.core.kernelfn import KernelSpec as TSpec
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 torch.set_float32_matmul_precision("highest")
 

@@ -23,6 +23,7 @@ from repro_torch.core.engine import EngineModel
 from repro_torch.core.kernelfn import KernelSpec
 from repro_torch.serve import (FORMAT_VERSION, ModelRegistry, RegistryError,
                                model_fingerprint)
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TASKS = ("binary", "ovr", "ovo", "svr", "oneclass")
 

@@ -26,6 +26,7 @@ from repro_torch.core import lanczos
 from repro_torch.core.compression import CompressionParams as TParams
 from repro_torch.core.engine import HSSSVMEngine as TEngine
 from repro_torch.core.kernelfn import KernelSpec as TSpec
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 torch.set_float32_matmul_precision("highest")
 N, LEAF = 8192, 128

@@ -37,6 +37,7 @@ from repro.serve import ServingEngine as JEngine
 from repro_torch import convert
 from repro_torch.serve import BatchPolicy, ModelRegistry, ServingEngine, batched_scores
 from repro_torch.serve.engine import _ovo_vote_np
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TASKS = ("binary", "ovr", "ovo", "svr", "oneclass", "krr", "gp")
 F32_RTOL = 1e-5

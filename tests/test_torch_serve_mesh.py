@@ -50,6 +50,7 @@ from repro_torch import convert
 from repro_torch.configs.registry import get_config
 from repro_torch.dist import api as dist_api
 from torch_lm_mesh_ranks import model_of
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32 = dict(param_dtype="float32", compute_dtype="float32", remat="none")
 GRANITE = ("granite-moe-3b-a800m", dict(F32, n_experts=12, capacity_factor=6.0))

@@ -25,6 +25,7 @@ from repro.train import optim as joptim
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.dist import api as dist_api, sharding
 from repro_torch.models.transformer import Model
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MESHES = [(1, 2), (2, 2), (4, 2), (1, 8)]
 BATCH, SEQ, MAX_LEN = 8, 512, 1024

@@ -30,6 +30,7 @@ from repro_torch.core.engine import HSSSVMEngine as TEngine
 from repro_torch.core.hss import HSSMatrix
 from repro_torch.core.kernelfn import KernelSpec as TSpec
 from repro_torch.dist.fault import FailureInjector, InjectedFailure
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 torch.set_float32_matmul_precision("highest")
 H = 1.5

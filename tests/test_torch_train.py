@@ -26,6 +26,7 @@ from repro_torch import convert
 from repro_torch.configs.registry import get_config
 from repro_torch.data import tokens
 from repro_torch.models.transformer import Model
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BATCH, SEQ = 2, 32
 

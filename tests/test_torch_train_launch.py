@@ -27,6 +27,7 @@ from repro.train import optim as joptim, step as jstep
 from repro_torch import convert
 from repro_torch.launch import train
 from repro_torch.models.transformer import Model
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = ["--task", "lm", "--preset", "tiny", "--device", "cpu", "--log-every", "1"]
 

@@ -43,6 +43,7 @@ from repro_torch.kernels.ssd import ops as ssd_ops, ref as ssd_ref
 from repro_torch.models.transformer import Model
 from repro_torch.train import grad_compress, optim, step
 from test_torch_train import BATCH, SEQ, _flat, _pair
+from torch_test_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _port(arch, **over):
