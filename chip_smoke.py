@@ -19,7 +19,11 @@ Phases, each printed on its own lines, none of them allowed to fail:
                  card, at the shapes of the paths below: K1 and K4 on a
                  leaf-D batch, a coupling batch, one scoring block and a
                  batch above 65535 (K4 also in bf16); K3 on a 2^20 block.
-                 Kernel, plain and bound times in ms;
+                 Kernel, plain and bound times in ms; each K1/K4 row with
+                 its launch plan (kernels.pairwise: skinny, packed or wide)
+                 and, for a wide plan, a breakdown of its time (the inputs
+                 aliased or copied, one feature, a fill of the output:
+                 ``wide_breakdown``);
   4. small     — 2048-point engine runs on the card against the same runs on
                  the CPU (plain versions), for the three configurations
                  below: bias and predictions agree; then the tasks of the
@@ -430,10 +434,39 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_cost(b, ma, mb, f):
-    """Bytes: inputs read once, block written once (f32).  Flops: 2f for
-    the cross term, 5 for norms-combine, clamp, scale and exp, per entry."""
-    return 4.0 * b * (ma * f + mb * f + ma * mb), float(b) * ma * mb * (2 * f + 5)
+def wide_breakdown(torch, launcher, xa, xb, h, reps: int) -> dict:
+    """What holds a wide K1/K4 launch back, read on the card without
+    hardware counters (ncu does not run there), in CUDA-event ms a launch
+    of: the launch with xa given as a view of xb's first rows
+    (``alias_ms``, where that view is contiguous) and as a fresh copy of
+    them (``copies_ms``), the same values in other memory, so that the gap
+    is the staging loads' cache hits; the same block at one feature
+    (``f1_ms``: the arithmetic and the staging of F - 1 features gone, the
+    stores the same); and ``fill_ms``, a fill of an output of the same size
+    and type, the rate the card's stores reach without the kernel.
+    torch.profiler is not used here: on this card its trace dropped some
+    of a window's launches (as it can for K6's passes, below)."""
+    a3, b3 = (xa[None], xb[None]) if xa.dim() == 2 else (xa, xb)
+    ma = a3.shape[1]
+    alias = b3[:, :ma]          # a view; contiguous where Ma = Mb or the batch is 1
+    copy = b3[:, :ma].clone()
+    a1, b1 = a3[..., :1].contiguous(), b3[..., :1].contiguous()
+    out = dict(alias_ms=(time_ms(torch, lambda: launcher(alias, b3, h), reps)
+                         if alias.is_contiguous() else None),
+               copies_ms=time_ms(torch, lambda: launcher(copy, b3, h), reps),
+               f1_ms=time_ms(torch, lambda: launcher(a1, b1, h), reps))
+    del copy, a1, b1
+    o = torch.empty((a3.shape[0], ma, b3.shape[1]), dtype=a3.dtype, device=a3.device)
+    out["fill_ms"] = time_ms(torch, lambda: o.fill_(0.5), reps)
+    return out
+
+
+def k1_cost(b, ma, mb, f, elem_bytes=4):
+    """Bytes: inputs read once, block written once, in the input type.
+    Flops: 2f for the cross term, 5 for norms-combine, clamp, scale and
+    exp, per entry."""
+    return (float(elem_bytes) * b * (ma * f + mb * f + ma * mb),
+            float(b) * ma * mb * (2 * f + 5))
 
 
 def k2_cost(b, m, s, f, k, kernel_name="gaussian"):
@@ -588,7 +621,8 @@ def serve_phase(torch, dev, models, multi_test, reg_dir, lap_test, k1_case, k4_c
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # one launch a tick: group A (K1) and group B (K4) each ticked once in
     # the loop's warm-up and once a request; in the ticked engine once in
-    # the warm-up and once a full max_batch of rows (no remainder here)
+    # the warm-up and once a full max_batch of rows (no remainder here);
+    # a call is one launch, whatever its plan (kernels.pairwise)
     n_lap = SERVE_REQUESTS - n_multi
     want_counts["gaussian_block"] = 1 + n_multi + 1 + -(-n_multi * SERVE_Q // SERVE_TICK)
     want_counts["laplacian_block"] = 1 + n_lap + 1 + -(-n_lap * SERVE_Q // SERVE_TICK)
@@ -811,7 +845,7 @@ def baselines_phase(torch, dev, recording):
     from repro_torch.core.kernelfn import KernelSpec
     from repro_torch.core.svm import HSSSVMTrainer
     from repro_torch.data import synthetic
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, pairwise
     from repro_torch.kernels.gaussian import ops as gops, ref as gref
 
     spec = KernelSpec(h=BASE_H)
@@ -879,6 +913,7 @@ def baselines_phase(torch, dev, recording):
     levels = rows["hss_admm"]["levels"]
     # K1: dense K + its predict, Nyström's W, K(X, L) and predict, the HSS
     # build (leaf D, one a level) and its scoring block, SMO's predict
+    # (a call is one launch, whatever its plan)
     want = {name: 0 for name in counts}
     want["gaussian_block"] = 2 + 3 + 1 + levels + 1 + 1
     want["fused_assemble_id"] = levels
@@ -896,11 +931,12 @@ def baselines_phase(torch, dev, recording):
 
     plain = time_ms(torch, plain_slabs, 1)
     bms, by = bound(*k1_cost(1, BASE_N, BASE_N, 4))
+    dense_plan = pairwise.plan_for(x[None], x[None]).label()
     print(f"[kernels] K1 gaussian_block dense K (1,{BASE_N},4)x(1,{BASE_N},4): kernel "
-          f"{ms:.4f} ms, plain {plain:.4f} ms ({BASE_N // BASE_SLAB} slabs of {BASE_SLAB} "
-          f"rows), bound {bms:.4f} ms ({by})")
+          f"{ms:.4f} ms [{dense_plan}], plain {plain:.4f} ms ({BASE_N // BASE_SLAB} slabs "
+          f"of {BASE_SLAB} rows), bound {bms:.4f} ms ({by})")
     dense_row = dict(shape=f"dense K {BASE_N}^2", ms=ms, plain_ms=plain, bound_ms=bms,
-                     bound_by=by)
+                     bound_by=by, plan=dense_plan)
     del x, y, xt
     torch.cuda.empty_cache()
 
@@ -1139,8 +1175,8 @@ def recording(to_host: bool = False):
     rec = {name: [] for _, name in launchers}
     saved = [(mod, name, getattr(mod, name)) for mod, name in launchers]
     for mod, name, fn in saved:
-        def kept(*args, _fn=fn, _name=name):
-            out = _fn(*args)
+        def kept(*args, _fn=fn, _name=name, **kw):
+            out = _fn(*args, **kw)
             item = (args, out if _name == "fused_assemble_id_cuda" else None)
             rec[_name].append(moved(item, "cpu") if to_host else item)
             return out
@@ -3507,6 +3543,7 @@ def main() -> int:
     from repro_torch.kernels.compress import kernel as ckern, laplacian as lops, ref as cref
     from repro_torch.kernels.compress import verify
     from repro_torch.kernels.gaussian import kernel as gkern, ops as gops, ref as gref
+    from repro_torch.kernels import pairwise
 
     # Full-f32 matmuls throughout (PyTorch's defaults, set here explicitly).
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3548,6 +3585,17 @@ def main() -> int:
     n_leaf = tree.n_leaves
     xl = x.reshape(n_leaf, LEAF, N_FEATURES)
 
+    def plan_times(launcher, xa, xb, h, reps):
+        """The plan (kernels.pairwise) a K1/K4 call takes at this shape and,
+        for a wide plan, ``wide_breakdown``'s times."""
+        a3, b3 = (xa[None], xb[None]) if xa.dim() == 2 else (xa, xb)
+        p = pairwise.plan_for(a3, b3)
+        parts = (wide_breakdown(torch, launcher, xa, xb, h, reps)
+                 if p.family == pairwise.WIDE else {})
+        text = "".join(f"; {k} {v:.4f}" if isinstance(v, float) else f"; {k} {v}"
+                       for k, v in parts.items())
+        return p.label(), parts, f"[{p.label()}{text}]"
+
     def k1_case(label, xa, xb, reps, h=H, pads=None):
         """``pads``: a mask of entries to leave out of the comparison."""
         out = gops.gaussian_block(xa, xb, h)
@@ -3559,19 +3607,20 @@ def main() -> int:
         rel = err / max(ref.abs().max().item(), 1e-30)
         del out, ref, diff
         ms = time_ms(torch, lambda: gops.gaussian_block(xa, xb, h), reps)
+        plan, parts, plan_text = plan_times(gkern.gaussian_block_cuda, xa, xb, h, reps)
         plain = time_ms(torch, lambda: gref.gaussian_block_ref(xa, xb, h), max(1, reps // 4))
         shape = (1, *xa.shape) if xa.dim() == 2 else tuple(xa.shape)
         b, ma, f = shape
         mb = xb.shape[-2]
-        bms, by = bound(*k1_cost(b, ma, mb, f))
+        bms, by = bound(*k1_cost(b, ma, mb, f, xa.element_size()))
         print(f"[kernels] K1 gaussian_block {label} ({b},{ma},{f})x({b},{mb},{f}): "
               f"max_abs_err {err:.3e} (tol {K1_ATOL:g}), max_rel_err {rel:.3e}, "
-              f"kernel {ms:.4f} ms, "
+              f"kernel {ms:.4f} ms {plan_text}, "
               f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
         check(err <= K1_ATOL, f"K1 {label} disagrees with its plain version: {err}")
         torch.cuda.empty_cache()
         return dict(shape=label, max_abs_err=err, ms=ms, plain_ms=plain,
-                    bound_ms=bms, bound_by=by)
+                    bound_ms=bms, bound_by=by, plan=plan, breakdown=parts)
 
     k1_rows = [
         k1_case("leaf D", xl, xl, 20),
@@ -3579,16 +3628,29 @@ def main() -> int:
                 xl[1::2, :RANK].contiguous(), 50),
         k1_case("scoring block", x[:N_TEST], x, 8),
     ]
-    # A batch above grid.z's 65535 (10^7 points make 131072 leaves at leaf
-    # 128): the launcher splits it into chunks.  A check only, outside the
-    # cell, at 64 rows a block to keep it small.
+    # Batches above grid.z's 65535, one launch each: 131072 blocks of 64 x
+    # 64 (the packed plan, the batch on grid.x), and 70000 blocks of 64 x
+    # 128 (the wide plan, the batch looped past grid.z).  10^7 points make
+    # 131072 leaves at leaf 128.  Checks only, outside the cell, small rows.
     xbig = torch.randn((2 ** 17, 64, N_FEATURES), device=dev,
                        generator=torch.Generator(device=dev).manual_seed(1))
-    err_big = (gops.gaussian_block(xbig, xbig, H)
-               - gref.gaussian_block_ref(xbig, xbig, H)).abs().max().item()
-    print(f"[kernels] K1 gaussian_block batch {xbig.shape[0]} (above 65535) "
-          f"{tuple(xbig.shape)}: max_abs_err {err_big:.3e} (tol {K1_ATOL:g})")
-    check(err_big <= K1_ATOL, f"K1 at batch {xbig.shape[0]} disagrees: {err_big}")
+    xwide = torch.randn((70_000, 128, N_FEATURES), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(2))
+    for xa_, xb_, family in ((xbig, xbig, pairwise.PACKED),
+                             (xwide[:, :64].contiguous(), xwide, pairwise.WIDE)):
+        before_big = _build.launch_counts["gaussian_block"]
+        out_big = gops.gaussian_block(xa_, xb_, H)
+        launched = _build.launch_counts["gaussian_block"] - before_big
+        err_big = (out_big - gref.gaussian_block_ref(xa_, xb_, H)).abs().max().item()
+        del out_big
+        big_plan = pairwise.plan_for(xa_, xb_).label()
+        print(f"[kernels] K1 gaussian_block batch {xa_.shape[0]} (above 65535) "
+              f"{tuple(xa_.shape)}x{tuple(xb_.shape)}: max_abs_err {err_big:.3e} "
+              f"(tol {K1_ATOL:g}) [{big_plan}, {launched} launch]")
+        check(err_big <= K1_ATOL, f"K1 at batch {xa_.shape[0]} disagrees: {err_big}")
+        check(big_plan.split("/")[0] == family and launched == 1,
+              f"K1 at batch {xa_.shape[0]}: plan {big_plan}, {launched} launches")
+        torch.cuda.empty_cache()
 
     def k4_case(label, xa, xb, reps, time_it=True):
         tol = K4_ATOL if xa.dtype == torch.float32 else K4_BF16_ATOL
@@ -3607,6 +3669,7 @@ def main() -> int:
         if time_it:
             inv_h = 1.0 / H_LAP
             ms = time_ms(torch, lambda: lops.laplacian_block(xa, xb, H_LAP), reps)
+            plan, parts, plan_text = plan_times(lops.laplacian_block_cuda, xa, xb, H_LAP, reps)
             plain = time_ms(torch, lambda: cref.laplacian_block_ref(xa, xb, H_LAP),
                             max(1, reps // 4))
             # The yardstick, torch.cdist(p=1) then exp, in f32 only (cdist
@@ -3621,8 +3684,9 @@ def main() -> int:
                      if xa.dtype == torch.float32 else None)
             bms, by = k4_bound(b, ma, mb, f, xa.element_size())
             row.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                       cdist_exp_ms=cdist)
-            line += (f", kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.cdist(p=1)+exp "
+                       cdist_exp_ms=cdist, plan=plan, breakdown=parts)
+            line += (f", kernel {ms:.4f} ms {plan_text}, plain {plain:.4f} ms, "
+                     f"torch.cdist(p=1)+exp "
                      f"{'-' if cdist is None else f'{cdist:.4f}'} ms, "
                      f"bound {bms:.4f} ms ({by})")
             torch.cuda.empty_cache()
@@ -3638,7 +3702,9 @@ def main() -> int:
         k4_case("leaf D bf16", xl.to(torch.bfloat16), xl.to(torch.bfloat16), 20),
     ]
     k4_rows.append(k4_case("batch 131072 (above 65535)", xbig, xbig, 0, time_it=False))
-    del xbig
+    k4_rows.append(k4_case("batch 70000 (above 65535), wide", xwide[:, :64].contiguous(), xwide,
+                           0, time_it=False))
+    del xbig, xwide
     torch.cuda.empty_cache()
 
     g = torch.Generator(device=dev).manual_seed(0)

@@ -17,13 +17,13 @@ import pytest
 import torch
 
 from repro_torch.core import idqr
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, pairwise
 from repro_torch.kernels.admm_update import ops as aops, ref as aref
 from repro_torch.kernels.attention import kernel as attn_kern, ops as attn_ops
 from repro_torch.kernels.attention import ref as attn_ref
 from repro_torch.kernels.ssd import kernel as ssd_kern, ops as ssd_ops, ref as ssd_ref
 from repro_torch.kernels.compress import kernel as ckern, laplacian as lops, ref as cref
-from repro_torch.kernels.gaussian import ops as gops, ref as gref
+from repro_torch.kernels.gaussian import kernel as gkern, ops as gops, ref as gref
 
 pytestmark = pytest.mark.cuda
 
@@ -43,13 +43,13 @@ def _randn(shape, dev, seed):
 
 @pytest.mark.parametrize("b,ma,mb,f", [
     (1, 3, 2, 2), (3, 255, 129, 5), (2, 300, 7, 11),
-    (70_000, 5, 3, 8),          # batch above grid.z's 65535: two launches
+    (70_000, 5, 3, 8),          # batch above 65535: still one launch (a call is one)
 ])
 def test_gaussian_block_kernel_matches_plain(dev, b, ma, mb, f):
     xa, xb = _randn((b, ma, f), dev, 0), _randn((b, mb, f), dev, 1)
     before = _build.launch_counts["gaussian_block"]
     out = gops.gaussian_block(xa, xb, 0.9)
-    assert _build.launch_counts["gaussian_block"] == before + (1 if b <= 65535 else 2)
+    assert _build.launch_counts["gaussian_block"] == before + 1
     assert out.shape == (b, ma, mb)
     assert (out - gref.gaussian_block_ref(xa, xb, 0.9)).abs().max().item() <= 2e-5
 
@@ -167,7 +167,7 @@ def test_fused_assemble_id_at_the_accurate_leaf(dev, f):
 @pytest.mark.parametrize("b,ma,mb,f,dtype", [
     (1, 3, 2, 2, torch.float32), (3, 255, 129, 5, torch.float32),
     (2, 300, 7, 11, torch.float32), (2, 96, 40, 8, torch.bfloat16),
-    (70_000, 5, 3, 8, torch.float32),     # batch above grid.z's 65535
+    (70_000, 5, 3, 8, torch.float32),     # batch above 65535: one launch
 ])
 def test_laplacian_block_kernel_matches_plain(dev, b, ma, mb, f, dtype):
     """K4 against its plain version: the same L1 sums in the same order, so
@@ -176,11 +176,127 @@ def test_laplacian_block_kernel_matches_plain(dev, b, ma, mb, f, dtype):
     xb = _randn((b, mb, f), dev, 11).to(dtype)
     before = _build.launch_counts["laplacian_block"]
     out = lops.laplacian_block(xa, xb, 1.3)
-    assert _build.launch_counts["laplacian_block"] == before + (1 if b <= 65535 else 2)
+    assert _build.launch_counts["laplacian_block"] == before + 1
     assert out.shape == (b, ma, mb) and out.dtype == dtype
     tol = 2e-5 if dtype == torch.float32 else 2 ** -8
     err = (out.float() - cref.laplacian_block_ref(xa, xb, 1.3).float()).abs().max().item()
     assert err <= tol
+
+
+# Each plan of the pairwise block forced at ragged shapes: Ma in {1, 2, 3,
+# 15, 16, 17}, Mb off a multiple of 4 (and of 8), F in {1, 2, 5, 8, 11, 33},
+# and batches above 65535 (one launch each).
+_PLAN_CASES = [
+    ("skinny", 3, 1, 1030, 1), ("skinny", 2, 2, 2049, 5),
+    ("skinny", 1, 3, 1027, 8), ("skinny", 2, 15, 1500, 11),
+    ("skinny", 1, 16, 1024, 33), ("skinny", 70_000, 2, 6, 8),
+    ("packed", 3, 1, 7, 2), ("packed", 5, 17, 30, 5),
+    ("packed", 4, 16, 64, 8), ("packed", 2, 32, 32, 11),
+    ("packed", 3, 15, 33, 33), ("packed", 70_000, 5, 3, 8),
+    ("wide", 1, 3, 2, 2), ("wide", 3, 255, 129, 5),
+    ("wide", 2, 300, 7, 11), ("wide", 2, 17, 1027, 33),
+    ("wide", 70_000, 5, 3, 8), ("wide", 2, 70, 136, 1),
+    ("wide", 3, 255, 136, 5), ("wide", 2, 65, 264, 8),
+    ("wide", 1, 16, 1024, 33), ("wide", 70_000, 5, 8, 2),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["gaussian", "laplacian"])
+@pytest.mark.parametrize("family,b,ma,mb,f", _PLAN_CASES)
+def test_pairwise_each_plan_matches_plain(dev, family, b, ma, mb, f, kind, dtype):
+    """K1 and K4 on each plan forced, against the plain version at the
+    tolerances of chip_smoke.py (bf16: one rounding step of K, 2^-8); one
+    launch counted a call."""
+    xa = _randn((b, ma, f), dev, 20).to(dtype)
+    xb = _randn((b, mb, f), dev, 21).to(dtype)
+    launch, ref_fn, name = ((gkern.gaussian_block_cuda, gref.gaussian_block_ref, "gaussian_block")
+                            if kind == "gaussian" else
+                            (lops.laplacian_block_cuda, cref.laplacian_block_ref,
+                             "laplacian_block"))
+    assert pairwise.plan_for(xa, xb, family=family).family == family
+    before = _build.launch_counts[name]
+    out = launch(xa, xb, 1.3, family=family)
+    assert _build.launch_counts[name] == before + 1
+    assert out.shape == (b, ma, mb) and out.dtype == dtype
+    tol = 2e-5 if dtype == torch.float32 else 2 ** -8
+    assert (out.float() - ref_fn(xa, xb, 1.3).float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "laplacian"])
+def test_pairwise_skinny_unaligned_support(dev, kind):
+    """A support whose data pointer is off 16 bytes (a view at offset 1):
+    the skinny plan drops its vector loads and agrees all the same."""
+    buf = _randn((1 + 4099 * 8,), dev, 22)
+    xb = buf[1:].view(1, 4099, 8)
+    xa = _randn((1, 3, 8), dev, 23)
+    p = pairwise.plan_for(xa, xb)
+    assert p.family == "skinny" and not p.vec_load
+    launch, ref_fn = ((gkern.gaussian_block_cuda, gref.gaussian_block_ref)
+                      if kind == "gaussian" else (lops.laplacian_block_cuda,
+                                                  cref.laplacian_block_ref))
+    err = (launch(xa, xb, 0.7) - ref_fn(xa, xb, 0.7)).abs().max().item()
+    assert err <= 2e-5
+
+
+def test_pairwise_wide_at_a_misaligned_mb(dev):
+    """Output rows off 16 bytes (Mb 130 in f32, 132 in bf16): the wide
+    kernel stores every tile element by element and agrees with the plain
+    version; a forced family that cannot take the shape raises before
+    launching."""
+    for mb, dtype in ((130, torch.float32), (132, torch.bfloat16)):
+        xa = _randn((2, 70, 8), dev, 24).to(dtype)
+        xb = _randn((2, mb, 8), dev, 25).to(dtype)
+        assert pairwise.plan_for(xa, xb).family == "wide"
+        out = gkern.gaussian_block_cuda(xa, xb, 1.0)
+        tol = 2e-5 if dtype == torch.float32 else 2 ** -8
+        err = (out.float() - gref.gaussian_block_ref(xa, xb, 1.0).float()).abs().max().item()
+        assert err <= tol
+        before = dict(_build.launch_counts)
+        with pytest.raises(ValueError):
+            gkern.gaussian_block_cuda(xa, xb, 1.0, family="skinny")
+        assert _build.launch_counts == before
+
+
+def test_pairwise_plans_smem_is_the_kernels_count(dev):
+    """At the paths' shapes and each family that takes them, the planner's
+    shared memory is the kernels' own count, within the card's limit."""
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    for b, ma, mb, f in ((1, 2048, 2 ** 20, 8), (4096, 256, 256, 8), (2048, 32, 32, 8),
+                         (1, 2, 2 ** 20, 8), (1, 128, 2 ** 20, 8), (16, 32, 32, 8),
+                         (2048, 64, 64, 2), (3, 17, 1030, 33)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for family in pairwise.FAMILIES:
+                try:
+                    p = pairwise.plan(b, ma, mb, f, dtype, family=family)
+                except ValueError:
+                    continue
+                for name in ("gaussian_block", "laplacian_block"):
+                    assert pairwise.kernel_smem_bytes(name, dtype.itemsize, p, ma, mb, f) \
+                        == p.smem <= limit, (name, b, ma, mb, f, dtype, p)
+
+
+def test_pairwise_skinny_launch_in_a_cuda_graph(dev):
+    """A skinny launch (the serving loop's 2-row tick) captured in a CUDA
+    graph and replayed on new queries equals the plain version.  The
+    wrapper counts its one launch while capturing (the serving engine moves
+    that count onto its replays)."""
+    xb = _randn((1, 5000, 8), dev, 26)
+    xa = _randn((1, 2, 8), dev, 27)
+    assert pairwise.plan_for(xa, xb).family == "skinny"
+    gops.gaussian_block(xa, xb, 1.1)                  # warm-up: the build, eager
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = _build.launch_counts["gaussian_block"]
+    with torch.cuda.graph(graph):
+        out = gops.gaussian_block(xa, xb, 1.1)
+    counted = _build.launch_counts["gaussian_block"] - before
+    assert counted == 1                               # the wrapper ran once while capturing
+    for seed in (28, 29):
+        xa.copy_(_randn((1, 2, 8), dev, seed))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert (out - gref.gaussian_block_ref(xa, xb, 1.1)).abs().max().item() <= 2e-5
 
 
 def test_zmu_update_kernel_matches_plain(dev):
